@@ -1,4 +1,4 @@
-"""DeMethify-TPU: TPU-native methylation deconvolution framework.
+"""DeMethify-TPU: methylation deconvolution on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 cortes-ciriano-lab/DeMethify (reference: /root/reference): weighted,
@@ -13,8 +13,8 @@ Four solver modes (reference `demethify/demethify.py:148-217`):
   - unsupervised         (weighted NMF with the same FISTA machinery)
 
 Everything on the compute path is pure-functional JAX, jitted end-to-end,
-sharded over a ('replicate', 'cpg') device mesh, with Pallas kernels for
-the bandwidth-bound fused passes.
+sharded over a ('replicate', 'cpg') device mesh, with one Pallas (Triton
+route) kernel per small-tensor inner loop on the GPU (ops/pallas_small.py).
 """
 
 __version__ = "0.1.0"
@@ -30,9 +30,4 @@ from demethify_tpu.solvers.api import (  # noqa: F401
 from demethify_tpu.selection.sweep import evaluate_best_ic  # noqa: F401
 from demethify_tpu.uncertainty.bootstrap import bootstrap_ci  # noqa: F401
 from demethify_tpu.io.readers import Dataset, load_dataset  # noqa: F401
-from demethify_tpu.solvers.fused import (  # noqa: F401
-    partial_ref_solve_fused,
-    purity_solve_fused,
-    unsupervised_solve_fused,
-)
 from demethify_tpu.checkpoint import load_factors, save_factors  # noqa: F401

@@ -1,5 +1,5 @@
 """Command-line interface, flag-compatible with the reference
-(`demethify/demethify.py:24-239`), running the TPU-native solvers.
+(`demethify/demethify.py:24-239`), running the jitted JAX solvers.
 
 Reproduced quirks/conventions:
 - `nargs=1` flags arrive as 1-lists (`--nbunknown`, `--restart`, `--seed`,
@@ -19,8 +19,11 @@ restart with the same seed (making `--restart` a no-op) and crashes on
 `--seed N` + `--confidence` (list + int TypeError, `bootstrap.py:27`); here
 seeds fold per restart/replicate.
 
-TPU extras: `--dtype {float32,bfloat16,float64}` (default float32) and
+Extras: `--dtype {float32,bfloat16,float64}` (default float32) and
 `--platform` to pin the JAX backend.
+
+The plain run imports no pandas, matplotlib, orbax or tqdm: `--plot`,
+`--savestate`/`--initstate` and progress bars load theirs on demand.
 """
 
 import argparse
@@ -44,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="demethify-tpu",
         description="DeMethify-TPU - Partial reference-based Methylation "
-                    "Deconvolution (TPU-native)")
+                    "Deconvolution on JAX accelerators")
     parser.add_argument('--methfreq', nargs='+', type=str, required=True,
                         help='Methylation frequency file path (values '
                              'between 0 and 1)')
@@ -92,12 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--bedmethyl', action='store_true',
                         help='Flag to indicate that the input will be '
                              'bedmethyl files, modkit style')
-    # TPU-native extras
+    # extras beyond the reference's flags
     parser.add_argument('--dtype', choices=['float32', 'bfloat16',
                                             'float64'],
                         default='float32', help='Compute dtype on device')
     parser.add_argument('--platform', type=str, default=None,
-                        help='Pin the JAX backend (e.g. cpu, tpu)')
+                        help='Pin the JAX backend (e.g. cpu, cuda)')
     parser.add_argument('--icmax', nargs=1, type=int, default=[25],
                         help='Upper end of the --ic sweep range '
                              '(reference hardcodes 25)')
@@ -128,8 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
                              '(jax_debug_nans)')
     parser.add_argument('--shard', action='store_true',
                         help='Row-shard the CpG axis across all local '
-                             'devices (multi-chip); Gram reductions run '
-                             'as psum collectives over ICI')
+                             'devices; Gram reductions run as cross-device '
+                             'sums')
     parser.add_argument('--savestate', type=str, default=None,
                         help='Save the converged factor state (U, alpha, '
                              'cost) as an orbax checkpoint at this path '
@@ -144,15 +147,28 @@ def build_parser() -> argparse.ArgumentParser:
                              'address (host:port), total process count, '
                              'this process id. Every process must run '
                              'the same command; CpG rows are sharded '
-                             'globally (Gram reductions psum over '
-                             'ICI/DCN), proportions are written by '
+                             'globally (Gram reductions are cross-device '
+                             'sums), proportions are written by '
                              'process 0, unknown profiles as per-host '
                              'part files.')
     return parser
 
 
+def _check_optional_packages(args):
+    """Fail before any work when a requested feature's package is
+    missing."""
+    from demethify_tpu.utils import optional_import
+
+    if args.plot:
+        optional_import("pandas", "--plot")
+        optional_import("matplotlib", "--plot")
+    if args.savestate or args.initstate:
+        optional_import("orbax.checkpoint", "--savestate/--initstate")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    _check_optional_packages(args)
 
     if args.platform:
         import jax
@@ -339,7 +355,7 @@ def main(argv=None):
     # ------------------------------------------------------------------
     # bootstrap CIs first, like the reference (demethify.py:151-152)
     # ------------------------------------------------------------------
-    ci_props_df = None
+    ci_bounds = None
     if args.confidence:
         if ref_mat is None and n_u == 0:
             sys.stderr.write("Error: --confidence without --ref needs "
@@ -357,18 +373,19 @@ def main(argv=None):
                 and ci_method == "weights" and ref_mat is not None):
             # the weighted (row-multiplicity) layout has no per-replicate
             # row gather, so it runs directly on the row-sharded arrays:
-            # per-chip memory stays 1/n_devices of the data and the Gram
-            # reductions psum over ICI (genome-scale sharded CIs)
+            # per-device memory stays 1/n_devices of the data and the Gram
+            # reductions are cross-device sums (genome-scale sharded CIs)
             y_bt, d_bt, ref_bt = y, d, ref_mat
         elif (args.shard and args.multihost
                 and ci_method == "weights" and ref_mat is not None):
             # 2-D scale-out (--multihost --shard): replicates partition
-            # across PROCESSES (DCN carries only the tiny per-replicate
-            # results) while each process row-shards (Y, D, R) over its
-            # LOCAL chips (ICI carries the weighted Gram psums) — so
+            # across PROCESSES (the network carries only the tiny
+            # per-replicate results) while each process row-shards
+            # (Y, D, R) over its
+            # LOCAL devices (which sum the weighted Gram partials) — so
             # genome-scale bootstrap CIs compose with multihost
-            # (per-chip memory is 1/local_device_count of the data,
-            # never host-full-per-chip)
+            # (per-device memory is 1/local_device_count of the data,
+            # never host-full-per-device)
             from demethify_tpu.parallel.mesh import (
                 make_mesh,
                 shard_dataset,
@@ -407,10 +424,10 @@ def main(argv=None):
             devices=bt_devices, method=ci_method,
             progress=sys.stdout.isatty() and proc_id == 0)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
+        ci_bounds = (lo_p, hi_p, header + unknown_header)
         if proc_id == 0:
-            ci_props_df = write_ci_proportions(
-                outdir, lo_p, hi_p, header + unknown_header,
-                ds.sample_names)
+            write_ci_proportions(outdir, lo_p, hi_p,
+                                 header + unknown_header, ds.sample_names)
             if n_u > 0:
                 write_ci_profile(outdir, lo_u[:n_cpg_orig],
                                  hi_u[:n_cpg_orig], unknown_header)
@@ -455,10 +472,10 @@ def main(argv=None):
             # 2-D sweep (--multihost --shard): candidate ranks partition
             # across PROCESSES while each process solves its ranks on
             # its LOCAL row-sharded mesh (GSPMD inserts the Gram psums
-            # over ICI) — genome-scale model selection composes with
-            # multihost. Row padding for shard divisibility perturbs the
-            # AIC/BIC n_cpg term by < n_local_devices rows (same as the
-            # single-process --shard sweep).
+            # across local devices) — genome-scale model selection
+            # composes with multihost. Row padding for shard divisibility
+            # perturbs the AIC/BIC n_cpg term by < n_local_devices rows
+            # (same as the single-process --shard sweep).
             from demethify_tpu.parallel.mesh import (
                 make_mesh,
                 shard_dataset,
@@ -562,7 +579,6 @@ def main(argv=None):
     # ------------------------------------------------------------------
     # outputs (reference demethify.py:221-239)
     # ------------------------------------------------------------------
-    import pandas as pd
     if args.multihost:
         from demethify_tpu.parallel.distributed import replicated_to_host
         props_np = replicated_to_host(proportions).astype(np.float64)
@@ -572,8 +588,7 @@ def main(argv=None):
         # non-zero hosts wrote their profile part files above; the
         # replicated small outputs are process 0's job
         return 0
-    props_df = write_proportions(outdir, props_np, header,
-                                 ds.sample_names)
+    write_proportions(outdir, props_np, header, ds.sample_names)
 
     print("All demethified! Results in " + outdir)
     write_log(outdir, time_tot, ic_name, ic_n_u)
@@ -582,11 +597,25 @@ def main(argv=None):
             f.write('\n' + stats.summary() + '\n')
 
     if args.plot:
-        from demethify_tpu.plotting import plot_proportions
-        ci_df = ci_props_df if ci_props_df is not None else pd.DataFrame()
-        plot_proportions(props_df, ci_df, outdir, list_ic)
+        _plot(outdir, props_np, header, ds.sample_names, ci_bounds, list_ic)
 
     return 0
+
+
+def _plot(outdir, props, header, sample_names, ci_bounds, list_ic):
+    import pandas as pd
+
+    from demethify_tpu.plotting import plot_proportions
+
+    props_df = pd.DataFrame(props, index=header, columns=sample_names)
+    ci_df = pd.DataFrame()
+    if ci_bounds is not None:
+        lo, hi, ci_header = ci_bounds
+        ci_df = pd.DataFrame(
+            {name: [(float(lo[k, j]), float(hi[k, j]))
+                    for k in range(lo.shape[0])]
+             for j, name in enumerate(sample_names)}, index=ci_header)
+    plot_proportions(props_df, ci_df, outdir, list_ic)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,13 @@
 The shared library is compiled lazily with g++ on first use and cached
 next to the source (falls back to a user cache dir when the package is
 read-only). Everything degrades gracefully: `available()` is False when no
-compiler is present and callers (io/readers.py) fall back to pandas.
+compiler is present, and `parse_columns` then parses in Python with the
+same missing-value rules.
 """
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import tempfile
@@ -33,11 +35,15 @@ def _cache_path() -> str:
 
 
 def _build(so_path: str) -> bool:
+    # build under a private name and rename: concurrent first uses (test
+    # workers, processes of one run) never load a half-written library
+    tmp_path = f"{so_path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             _SRC, "-o", so_path],
+             _SRC, "-o", tmp_path],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp_path, so_path)
         return True
     except (subprocess.SubprocessError, FileNotFoundError, OSError):
         return False
@@ -77,22 +83,42 @@ def read_header(path: str, delim: str) -> List[str]:
         return f.readline().rstrip("\r\n").split(delim)
 
 
+def _to_float(field: str) -> float:
+    try:
+        return float(field)
+    except ValueError:              # "", "NA", "." and other text
+        return math.nan
+
+
+def _parse_python(path: str, idx: Sequence[int], delim: str) -> np.ndarray:
+    """The native parser's semantics in Python: missing fields, short
+    rows and text parse as NaN."""
+    rows = []
+    with open(path, "r") as f:
+        f.readline()
+        for line in f:
+            fields = line.rstrip("\r\n").split(delim)
+            rows.append([_to_float(fields[i]) if i < len(fields)
+                         else math.nan for i in idx])
+    return np.asarray(rows, np.float64).reshape(len(rows), len(idx))
+
+
 def parse_columns(path: str, columns: Sequence[str],
                   delim: str = "\t") -> np.ndarray:
     """Parse the named numeric columns of a delimited file with header.
 
     Returns float64 array of shape (n_rows, len(columns)); missing/invalid
-    fields are NaN. Raises RuntimeError if the native parser is
-    unavailable (callers should check available() and fall back).
+    fields are NaN. Uses the native parser when it is available, else a
+    Python parser with the same rules.
     """
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("fastbed native parser unavailable")
     header = read_header(path, delim)
     try:
         idx = [header.index(c) for c in columns]
     except ValueError as e:
         raise KeyError(f"column not found in {path}: {e}") from e
+    if not available():
+        return _parse_python(path, idx, delim)
+    lib = _load()
 
     path_b = path.encode()
     n_rows = lib.fastbed_count_rows(path_b)

@@ -10,15 +10,16 @@ Column conventions follow the reference exactly
   sample file gets `valid_coverage = 1`.
 - `--fillna` replaces NA with 0 in every input.
 
-Output dtype is configurable (float32 for TPU, float64 for CPU parity
-work). Readers return plain NumPy; the solvers' jit boundary devices them.
+Parsing goes through io/fastbed.py (native parser, Python fallback).
+Output dtype is configurable (float32 for the device, float64 for CPU
+parity work). Readers return plain NumPy; the solvers' jit boundary
+devices them.
 """
 
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
-import pandas as pd
 
 from demethify_tpu.io import fastbed
 
@@ -32,27 +33,24 @@ class Dataset:
     sample_names: List[str] = field(default_factory=list)
 
 
+def _nan_to_zero(vals, fillna: bool):
+    return np.nan_to_num(vals, nan=0.0) if fillna else vals
+
+
 def read_reference_bed(path: str, fillna: bool = False,
                        dtype=np.float64):
-    if fastbed.available():
-        header = fastbed.read_header(path, "\t")[3:]
-        vals = fastbed.parse_columns(path, header, "\t")
-        if fillna:
-            vals = np.nan_to_num(vals, nan=0.0)
-        return vals.astype(dtype), header
-    df = pd.read_csv(path, sep="\t").iloc[:, 3:]
-    if fillna:
-        df = df.fillna(0)
-    return df.values.astype(dtype), list(df.columns)
+    """Reference matrix = columns 3+ of the reference BED."""
+    header = fastbed.read_header(path, "\t")[3:]
+    vals = fastbed.parse_columns(path, header, "\t")
+    return _nan_to_zero(vals, fillna).astype(dtype), header
 
 
 def read_reference_csv(path: str, fillna: bool = False,
                        dtype=np.float64):
-    df = pd.read_csv(path)
-    if fillna:
-        df = df.fillna(0)
-    return df.values.astype(dtype), list(df.columns)
-
+    """Reference matrix = every column of the reference CSV."""
+    header = fastbed.read_header(path, ",")
+    vals = fastbed.parse_columns(path, header, ",")
+    return _nan_to_zero(vals, fillna).astype(dtype), header
 
 
 def _check_equal_rows(meth, paths):
@@ -64,23 +62,15 @@ def _check_equal_rows(meth, paths):
             f"Sample files have different CpG row counts ({detail}) — "
             f"intersect them first (demethify-tpu-intersect).")
 
+
 def read_bedmethyl_samples(paths: List[str], fillna: bool = False,
                            dtype=np.float64):
     meth, counts = [], []
     for bed in paths:
-        if fastbed.available():
-            vals = fastbed.parse_columns(
-                bed, ["percent_modified", "valid_coverage"], "\t")
-            if fillna:
-                vals = np.nan_to_num(vals, nan=0.0)
-            meth.append(vals[:, 0] / 100.0)
-            counts.append(vals[:, 1])
-        else:
-            df = pd.read_csv(bed, sep="\t")
-            if fillna:
-                df = df.fillna(0)
-            meth.append(df["percent_modified"].values / 100.0)
-            counts.append(df["valid_coverage"].values)
+        vals = _nan_to_zero(fastbed.parse_columns(
+            bed, ["percent_modified", "valid_coverage"], "\t"), fillna)
+        meth.append(vals[:, 0] / 100.0)
+        counts.append(vals[:, 1])
     _check_equal_rows(meth, paths)
     return (np.column_stack(meth).astype(dtype),
             np.column_stack(counts).astype(dtype))
@@ -88,32 +78,19 @@ def read_bedmethyl_samples(paths: List[str], fillna: bool = False,
 
 def read_csv_samples(paths: List[str], fillna: bool = False,
                      dtype=np.float64):
+    """A single-column sample CSV gets ``valid_coverage = 1``."""
     meth, counts = [], []
     for csv in paths:
-        if fastbed.available():
-            header = fastbed.read_header(csv, ",")
-            if len(header) == 1:
-                vals = fastbed.parse_columns(csv, ["percent_modified"],
-                                             ",")
-                if fillna:
-                    vals = np.nan_to_num(vals, nan=0.0)
-                meth.append(vals[:, 0])
-                counts.append(np.ones(vals.shape[0]))
-            else:
-                vals = fastbed.parse_columns(
-                    csv, ["percent_modified", "valid_coverage"], ",")
-                if fillna:
-                    vals = np.nan_to_num(vals, nan=0.0)
-                meth.append(vals[:, 0])
-                counts.append(vals[:, 1])
-            continue
-        df = pd.read_csv(csv)
-        if df.shape[1] == 1:
-            df["valid_coverage"] = 1
-        if fillna:
-            df = df.fillna(0)
-        meth.append(df["percent_modified"].values)
-        counts.append(df["valid_coverage"].values)
+        if len(fastbed.read_header(csv, ",")) == 1:
+            vals = _nan_to_zero(fastbed.parse_columns(
+                csv, ["percent_modified"], ","), fillna)
+            meth.append(vals[:, 0])
+            counts.append(np.ones(vals.shape[0]))
+        else:
+            vals = _nan_to_zero(fastbed.parse_columns(
+                csv, ["percent_modified", "valid_coverage"], ","), fillna)
+            meth.append(vals[:, 0])
+            counts.append(vals[:, 1])
     _check_equal_rows(meth, paths)
     return (np.column_stack(meth).astype(dtype),
             np.column_stack(counts).astype(dtype))

@@ -1,24 +1,48 @@
-"""Output writers matching the reference's CSV/log formats byte-for-byte in
-structure (`demethify/demethify.py:204-233`, `bootstrap.py:49-90`)."""
+"""Output writers matching the reference's CSV/log formats byte for byte
+(`demethify/demethify.py:204-233`, `bootstrap.py:49-90`).
 
+The reference writes through pandas' ``DataFrame.to_csv``; these writers
+produce the same bytes with the ``csv`` module: float cells as the
+shortest round-trip ``repr`` (what pandas prints for float64), NaN as the
+empty string, and QUOTE_MINIMAL quoting, so the "(lo, hi)" CI cells are
+double-quoted for their embedded comma."""
+
+import csv
+import math
 import os
 from typing import List, Optional, Sequence
 
 import numpy as np
-import pandas as pd
+
+
+def _cell(x: float) -> str:
+    return "" if math.isnan(x) else repr(x)
+
+
+def _write_rows(path: str, header: Sequence[str], rows) -> str:
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow(header)
+        out.writerows(rows)
+    return path
+
+
+def _float_rows(values: np.ndarray, index: Optional[Sequence] = None):
+    """Rows of formatted cells, optionally led by an index label."""
+    rows = np.asarray(values, np.float64).tolist()
+    if index is None:
+        return ([_cell(x) for x in row] for row in rows)
+    return ([label] + [_cell(x) for x in row]
+            for label, row in zip(index, rows))
 
 
 def write_proportions(outdir: str, proportions: np.ndarray,
                       header: List[str], sample_names: List[str]) -> str:
     """`celltypes_proportions.csv`: index name "Cell types", one column per
-    sample file basename."""
-    df = pd.DataFrame(np.asarray(proportions))
-    df.index = header
-    df.columns = sample_names
-    df.index.name = "Cell types"
+    sample file basename. Returns the path."""
     path = os.path.join(outdir, "celltypes_proportions.csv")
-    df.to_csv(path, index=True)
-    return df
+    return _write_rows(path, ["Cell types"] + list(sample_names),
+                       _float_rows(proportions, header))
 
 
 def write_profile_estimate(outdir: str, u: np.ndarray,
@@ -31,14 +55,11 @@ def write_profile_estimate(outdir: str, u: np.ndarray,
     so no host ever gathers the genome-scale factor."""
     path = os.path.join(outdir,
                         f"methylation_profile_estimate{suffix}.csv")
-    df = pd.DataFrame(np.asarray(u))
     if suffix:
-        df.index = np.arange(row_offset, row_offset + df.shape[0])
-        df.to_csv(path, index=True, index_label="row",
-                  header=unknown_header)
-    else:
-        df.to_csv(path, index=False, header=unknown_header)
-    return path
+        index = range(row_offset, row_offset + np.shape(u)[0])
+        return _write_rows(path, ["row"] + list(unknown_header),
+                           _float_rows(u, index))
+    return _write_rows(path, unknown_header, _float_rows(u))
 
 
 def write_log(outdir: str, total_time: float,
@@ -53,49 +74,31 @@ def write_log(outdir: str, total_time: float,
     return path
 
 
+def _ci_cells(lower: np.ndarray, upper: np.ndarray):
+    """(rows, cols) grid of "(lo, hi)" cells, as str(tuple) prints them."""
+    lo = np.asarray(lower, np.float64).tolist()
+    hi = np.asarray(upper, np.float64).tolist()
+    return [[f"({a!r}, {b!r})" for a, b in zip(rl, rh)]
+            for rl, rh in zip(lo, hi)]
+
+
 def write_ci_proportions(outdir: str, lower: np.ndarray, upper: np.ndarray,
                          cell_types: Sequence[str],
-                         sample_names: Sequence[str]) -> pd.DataFrame:
+                         sample_names: Sequence[str]) -> str:
     """`confidence_interval_celltypes_proportions.csv`: cells are
-    "(lo, hi)" tuples, index name "Cell Type" (reference `bootstrap.py:60-70`).
-
-    lower/upper: (p, n_s)."""
-    data = {}
-    for j, name in enumerate(sample_names):
-        data[name] = [(float(lower[k, j]), float(upper[k, j]))
-                      for k in range(lower.shape[0])]
-    df = pd.DataFrame(data, index=list(cell_types))
-    df.index.name = "Cell Type"
-    df.to_csv(os.path.join(
-        outdir, "confidence_interval_celltypes_proportions.csv"), index=True)
-    return df
+    "(lo, hi)" tuples, index name "Cell Type" (reference
+    `bootstrap.py:60-70`). lower/upper: (p, n_s). Returns the path."""
+    path = os.path.join(outdir,
+                        "confidence_interval_celltypes_proportions.csv")
+    rows = ([name] + cells
+            for name, cells in zip(cell_types, _ci_cells(lower, upper)))
+    return _write_rows(path, ["Cell Type"] + list(sample_names), rows)
 
 
 def write_ci_profile(outdir: str, lower: np.ndarray, upper: np.ndarray,
                      unknown_header: Sequence[str]) -> str:
     """`confidence_interval_methylation_estimate.csv` (reference
-    `bootstrap.py:80-89`). lower/upper: (n_cpg, n_u). Returns the path.
-
-    This is the genome-scale CI output (n_cpg rows), so the cells are
-    assembled as strings directly instead of routing n_cpg x n_u Python
-    tuple objects through a DataFrame (pandas re-reprs every tuple cell
-    and re-applies csv quoting — minutes at 1M rows). Cell text is
-    byte-identical to pandas' rendering of ``(float(lo), float(hi))``:
-    ``"(repr(lo), repr(hi))"`` with the csv QUOTE_MINIMAL double quotes
-    that the embedded comma forces."""
-    # .tolist() yields builtin floats, whose repr is the shortest
-    # round-trip form str(tuple) would have printed (np.float64's repr
-    # differs under numpy>=2)
-    lo_cols = np.asarray(lower, np.float64).T.tolist()
-    hi_cols = np.asarray(upper, np.float64).T.tolist()
-    col_cells = [
-        [f'"({a!r}, {b!r})"' for a, b in zip(cl, ch)]
-        for cl, ch in zip(lo_cols, hi_cols)]
+    `bootstrap.py:80-89`). lower/upper: (n_cpg, n_u). Returns the path."""
     path = os.path.join(outdir,
                         "confidence_interval_methylation_estimate.csv")
-    with open(path, "w") as f:
-        f.write(",".join(unknown_header))
-        f.write("\n")
-        f.write("\n".join(",".join(row) for row in zip(*col_cells)))
-        f.write("\n")
-    return path
+    return _write_rows(path, unknown_header, _ci_cells(lower, upper))

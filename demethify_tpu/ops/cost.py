@@ -12,6 +12,8 @@ Reference: `cost_f_w`, `demethify/deconvolution.py:14-17`. Two forms:
 
 import jax.numpy as jnp
 
+from demethify_tpu.ops.gram import HIGHEST, accum_dtype
+
 
 def weighted_cost(y, R, alpha, d, row_weights=None) -> jnp.ndarray:
     """sum(d * (y - R @ alpha)**2), scalar. ``row_weights`` additionally
@@ -19,16 +21,15 @@ def weighted_cost(y, R, alpha, d, row_weights=None) -> jnp.ndarray:
     multiply fuses into the reduction.
 
     With bfloat16 storage the whole computation runs in float32 (see
-    ops.gram.accum_dtype): the model matmul accumulates f32 on the MXU,
-    and the residual/square/sum stay f32 in registers — the upcasts are
-    fused into the read, so HBM traffic is still the bf16 arrays. Keeping
+    ops.gram.accum_dtype): the model matmul accumulates f32, and the
+    residual/square/sum stay f32 in registers — the upcasts are fused
+    into the read, so memory traffic is still the bf16 arrays. Keeping
     the residual in storage dtype instead would put a ~1e-2 relative
     error on every term, which is what made bf16 costs untrustworthy."""
-    from demethify_tpu.ops.gram import accum_dtype
-
     acc = accum_dtype(y)
     resid = y.astype(acc) - jnp.einsum("ip,ps->is", R, alpha,
-                                       preferred_element_type=acc)
+                                       preferred_element_type=acc,
+                                       precision=HIGHEST)
     sq = d.astype(acc) * resid * resid
     if row_weights is not None:
         sq = row_weights.astype(acc)[:, None] * sq
@@ -42,6 +43,6 @@ def weighted_cost_gram(G, b, ydy, alpha) -> jnp.ndarray:
     Exactly equal (in exact arithmetic) to ``weighted_cost`` with the R, d, y
     used to build the Grams.
     """
-    quad = jnp.einsum("spq,ps,qs->s", G, alpha, alpha)
+    quad = jnp.einsum("spq,ps,qs->s", G, alpha, alpha, precision=HIGHEST)
     lin = jnp.sum(b * alpha, axis=0)
     return jnp.sum(ydy - 2.0 * lin + quad)

@@ -9,7 +9,7 @@ Lipschitz estimate, then clip-to-[0,1] (U) or simplex projection (alpha).
 Two dataflows, numerically identical gradients:
 
 - *gram* form: inner steps contract precomputed G/b (alpha) or C/M (u);
-  zero passes over the big (n_cpg x n_s) arrays — the TPU-native default.
+  zero passes over the big (n_cpg x n_s) arrays — the default.
 - *direct* form: mirrors the reference dataflow exactly (re-reads Y/D each
   step); used when n_u is so large that the (n_cpg, n_u, n_u) curvature
   tensor would exceed the traffic it saves, and as a test oracle.
@@ -17,17 +17,17 @@ Two dataflows, numerically identical gradients:
 All loops have static trip counts and are UNROLLED (Python loop) up to
 `_UNROLL_LIMIT` steps: each FISTA step is elementwise in the loop-carried
 arrays, so unrolling turns the whole inner loop into one elementwise DAG
-that XLA fuses into a single kernel — measured on TPU v5e this cuts the
-U-phase from 0.85 ms to 0.25 ms per outer iteration at 1M sites (the
-`lax.fori_loop` form re-reads u/u_prev/C/M from HBM every step; the fused
-form reads each operand once). Beyond the limit we fall back to fori_loop
-to bound compile time.
+that XLA can fuse into one kernel (the `lax.fori_loop` form re-reads
+u/u_prev/C/M from device memory every step; the fused form reads each
+operand once). Beyond the limit we fall back to fori_loop to bound
+compile time.
 """
 
 
 import jax
 import jax.numpy as jnp
 
+from demethify_tpu.ops.gram import HIGHEST
 from demethify_tpu.ops.simplex import (
     project_columns_to_simplex,
     project_columns_to_simplex_masked,
@@ -75,7 +75,7 @@ def fista_u_gram(u, u_prev, a, l_w_prev, l_w, C, M, n_steps: int):
         a1 = _nesterov_step(a0)
         beta = _momentum(a0, a1, l_prev, l_w)
         u_t = u + beta * (u - u_prev)
-        grad = C - jnp.einsum("iuv,iv->iu", M, u_t)
+        grad = C - jnp.einsum("iuv,iv->iu", M, u_t, precision=HIGHEST)
         u_new = jnp.clip(u_t + grad / l_w, 0.0, 1.0)
         return (u_new, u, a1, l_w)
 
@@ -91,7 +91,7 @@ def fista_u_direct(u, u_prev, a, l_w_prev, l_w, y, d, R_trunc, a1_block,
     if R_trunc is None:
         y_eff = y
     else:
-        y_eff = y - R_trunc @ a1_block
+        y_eff = y - jnp.matmul(R_trunc, a1_block, precision=HIGHEST)
 
     def body(_, carry):
         u, u_prev, a, l_prev = carry
@@ -99,7 +99,8 @@ def fista_u_direct(u, u_prev, a, l_w_prev, l_w, y, d, R_trunc, a1_block,
         a1 = _nesterov_step(a0)
         beta = _momentum(a0, a1, l_prev, l_w)
         u_t = u + beta * (u - u_prev)
-        grad = (d * (y_eff - u_t @ a2_block)) @ a2_block.T
+        resid = y_eff - jnp.matmul(u_t, a2_block, precision=HIGHEST)
+        grad = jnp.matmul(d * resid, a2_block.T, precision=HIGHEST)
         u_new = jnp.clip(u_t + grad / l_w, 0.0, 1.0)
         return (u_new, u, a1, l_w)
 
@@ -133,7 +134,7 @@ def fista_alpha_gram(alpha, alpha_prev, a, l_h_prev, l_h, G, b,
         a2 = _nesterov_step(a0)
         beta = _momentum(a0, a2, l_prev, l_h)
         a_t = alpha + beta * (alpha - alpha_prev)
-        grad = b - jnp.einsum("spq,qs->ps", G, a_t)
+        grad = b - jnp.einsum("spq,qs->ps", G, a_t, precision=HIGHEST)
         a_new = project(a_t + grad / l_h)
         return (a_new, alpha, a2, l_h)
 
@@ -150,7 +151,8 @@ def fista_alpha_direct(alpha, alpha_prev, a, l_h_prev, l_h, y, d, R,
         a2 = _nesterov_step(a0)
         beta = _momentum(a0, a2, l_prev, l_h)
         a_t = alpha + beta * (alpha - alpha_prev)
-        grad = R.T @ (d * (y - R @ a_t))
+        resid = y - jnp.matmul(R, a_t, precision=HIGHEST)
+        grad = jnp.matmul(R.T, d * resid, precision=HIGHEST)
         a_new = project_columns_to_simplex(a_t + grad / l_h)
         return (a_new, alpha, a2, l_h)
 

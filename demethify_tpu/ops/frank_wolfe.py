@@ -16,6 +16,8 @@ no per-column Python loop.
 import jax
 import jax.numpy as jnp
 
+from demethify_tpu.ops.gram import HIGHEST
+
 
 def _lmo_columns(grad, mass):
     """Per-column vertex: mass_s * e_{argmin_col grad}. grad: (k, n_s)."""
@@ -33,7 +35,8 @@ def frank_wolfe_gram(alpha1, alpha2, G, b, purity, max_iter: int):
     alpha = jnp.concatenate([alpha1, alpha2], axis=0)
 
     def body(k, alpha):
-        grad = jnp.einsum("spq,qs->ps", G, alpha) - b  # = -(b - G a)
+        # = -(b - G a)
+        grad = jnp.einsum("spq,qs->ps", G, alpha, precision=HIGHEST) - b
         s1 = _lmo_columns(grad[:p1], purity)
         s2 = _lmo_columns(grad[p1:], 1.0 - purity)
         s = jnp.concatenate([s1, s2], axis=0)

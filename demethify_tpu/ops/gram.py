@@ -1,9 +1,9 @@
-"""Gram-form precomputations: the TPU-first restructuring of the hot loops.
+"""Gram-form precomputations: the restructuring of the hot loops.
 
 The reference's inner FISTA loops (`update_u`/`update_alpha`,
 `demethify/deconvolution.py:80-102`) re-read the full (n_cpg x n_s) arrays
-Y and D on *every* inner step — ~40 full passes per outer iteration. On TPU
-the workload is HBM-bandwidth-bound (arithmetic intensity ~p flops/element),
+Y and D on *every* inner step — ~40 full passes per outer iteration. The
+workload is memory-bandwidth-bound (arithmetic intensity ~p flops/element),
 so we restructure algebraically:
 
   alpha-gradient:  R' (d_s ⊙ (y_s - R a_s)) = b_s - G_s a_s
@@ -20,17 +20,31 @@ mathematically identical to the reference's (floating-point reassociation
 aside).
 
 Sharding: with Y/D/R row-sharded on the 'cpg' mesh axis, G/b/ydy are
-cross-shard reductions (XLA inserts psum over ICI); C and M inherit the
-row sharding with no communication.
+cross-shard reductions (XLA inserts a cross-device sum); C and M inherit
+the row sharding with no communication.
+
+Precision: every contraction here sums over the CpG axis or feeds one that
+does, and is pinned to ``HIGHEST``. On a GPU an f32 einsum at DEFAULT
+precision may run in TF32 (10-bit mantissa), and the Gram-identity cost
+``ydy - 2 b.a + a'Ga`` (ops/cost.py) then cancels to noise. These
+contractions are skinny and bandwidth-bound, so full f32 costs little.
 """
 
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _einsum(spec, *operands, acc):
+    return jnp.einsum(spec, *operands, preferred_element_type=acc,
+                      precision=HIGHEST)
 
 
 def accum_dtype(x):
     """Accumulation dtype for reductions over the CpG axis: low-precision
-    storage (bfloat16 mixed mode — halves HBM traffic) still accumulates
-    in float32; float32/float64 stay as-is."""
+    storage (bfloat16 mixed mode — halves memory traffic) still
+    accumulates in float32; float32/float64 stay as-is."""
     if x.dtype in (jnp.bfloat16, jnp.float16):
         return jnp.float32
     return x.dtype
@@ -43,35 +57,9 @@ def sample_grams(R, d, y, row_weights=None):
       G: (n_s, p, p) = R' diag(d_s) R
       b: (p, n_s)    = R' (d_s * y_s)
       ydy: (n_s,)    = sum_i d_is y_is^2
-    One pass over (Y, D, R); all outputs are tiny and replicated.
-
-    ``row_weights`` ((n_cpg,), the bootstrap's row-multiplicity form)
-    joins the contractions as an extra einsum operand (fused, never
-    materialized — see known_block_grams).
-    """
-    acc = accum_dtype(y)
-    if row_weights is None:
-        G = jnp.einsum("ip,is,iq->spq", R, d, R,
-                       preferred_element_type=acc)
-        b = jnp.einsum("ip,is->ps", R, d * y, preferred_element_type=acc)
-        ydy = jnp.sum((d * y * y).astype(acc), axis=0)
-        return G, b, ydy
-    w = row_weights
-    G = jnp.einsum("i,ip,is,iq->spq", w, R, d, R,
-                   preferred_element_type=acc)
-    b = jnp.einsum("i,ip,is->ps", w, R, d * y,
-                   preferred_element_type=acc)
-    ydy = jnp.einsum("i,is->s", w, (d * y * y).astype(acc),
-                     preferred_element_type=acc)
-    return G, b, ydy
-
-
-def known_block_grams(R_trunc, d, y, row_weights=None):
-    """Loop-invariant Gram blocks: with R = [Rt | U], the known-known
-    block G_tt = Rt' diag(d_s) Rt, the known half of b, and ydy depend
-    only on (Rt, D, Y) — compute ONCE before the outer loop.
-
-    Returns (G_tt (n_s, n_ct, n_ct), b_t (n_ct, n_s), ydy (n_s,)).
+    One pass over (Y, D, R); all outputs are tiny and replicated. With
+    R = Rt (the known panel) these are the loop-invariant blocks G_tt,
+    b_t and ydy, computed once before the outer loop.
 
     ``row_weights`` ((n_cpg,), the bootstrap's row-multiplicity form)
     joins the contractions as an extra einsum operand — XLA fuses the
@@ -81,20 +69,15 @@ def known_block_grams(R_trunc, d, y, row_weights=None):
     """
     acc = accum_dtype(y)
     if row_weights is None:
-        G_tt = jnp.einsum("ip,is,iq->spq", R_trunc, d, R_trunc,
-                          preferred_element_type=acc)
-        b_t = jnp.einsum("ip,is->ps", R_trunc, d * y,
-                         preferred_element_type=acc)
+        G = _einsum("ip,is,iq->spq", R, d, R, acc=acc)
+        b = _einsum("ip,is->ps", R, d * y, acc=acc)
         ydy = jnp.sum((d * y * y).astype(acc), axis=0)
-        return G_tt, b_t, ydy
+        return G, b, ydy
     w = row_weights
-    G_tt = jnp.einsum("i,ip,is,iq->spq", w, R_trunc, d, R_trunc,
-                      preferred_element_type=acc)
-    b_t = jnp.einsum("i,ip,is->ps", w, R_trunc, d * y,
-                     preferred_element_type=acc)
-    ydy = jnp.einsum("i,is->s", w, (d * y * y).astype(acc),
-                     preferred_element_type=acc)
-    return G_tt, b_t, ydy
+    G = _einsum("i,ip,is,iq->spq", w, R, d, R, acc=acc)
+    b = _einsum("i,ip,is->ps", w, R, d * y, acc=acc)
+    ydy = _einsum("i,is->s", w, (d * y * y).astype(acc), acc=acc)
+    return G, b, ydy
 
 
 def sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y,
@@ -103,24 +86,18 @@ def sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y,
     recomputed (G_tu, G_uu, b_u), ~70% fewer FLOPs than rebuilding the
     full p x p Grams when n_ct dominates p. Exactly equals
     sample_grams([Rt|u], d, y)[:2] (w-weighted when row_weights is
-    given; see known_block_grams).
+    given; see sample_grams).
     """
     acc = accum_dtype(y)
     if row_weights is None:
-        G_tu = jnp.einsum("ip,is,iu->spu", R_trunc, d, u,
-                          preferred_element_type=acc)
-        G_uu = jnp.einsum("iu,is,iv->suv", u, d, u,
-                          preferred_element_type=acc)
-        b_u = jnp.einsum("iu,is->us", u, d * y,
-                         preferred_element_type=acc)
+        G_tu = _einsum("ip,is,iu->spu", R_trunc, d, u, acc=acc)
+        G_uu = _einsum("iu,is,iv->suv", u, d, u, acc=acc)
+        b_u = _einsum("iu,is->us", u, d * y, acc=acc)
     else:
         w = row_weights
-        G_tu = jnp.einsum("i,ip,is,iu->spu", w, R_trunc, d, u,
-                          preferred_element_type=acc)
-        G_uu = jnp.einsum("i,iu,is,iv->suv", w, u, d, u,
-                          preferred_element_type=acc)
-        b_u = jnp.einsum("i,iu,is->us", w, u, d * y,
-                         preferred_element_type=acc)
+        G_tu = _einsum("i,ip,is,iu->spu", w, R_trunc, d, u, acc=acc)
+        G_uu = _einsum("i,iu,is,iv->suv", w, u, d, u, acc=acc)
+        b_u = _einsum("i,iu,is->us", w, u, d * y, acc=acc)
     top = jnp.concatenate([G_tt, G_tu], axis=2)
     bottom = jnp.concatenate([jnp.swapaxes(G_tu, 1, 2), G_uu], axis=2)
     G = jnp.concatenate([top, bottom], axis=1)
@@ -133,8 +110,7 @@ def site_curvature(d, a2):
 
     d: (n_cpg, n_s), a2: (n_u, n_s)  ->  M: (n_cpg, n_u, n_u).
     """
-    return jnp.einsum("us,is,vs->iuv", a2, d, a2,
-                      preferred_element_type=accum_dtype(d))
+    return _einsum("us,is,vs->iuv", a2, d, a2, acc=accum_dtype(d))
 
 
 def u_constant_term(y, d, R_trunc, a1, a2):
@@ -147,7 +123,6 @@ def u_constant_term(y, d, R_trunc, a1, a2):
     if R_trunc is None:
         resid = y
     else:
-        resid = y - jnp.einsum("ic,cs->is", R_trunc, a1,
-                               preferred_element_type=acc).astype(y.dtype)
-    return jnp.einsum("is,us->iu", d * resid, a2,
-                      preferred_element_type=acc)
+        resid = y - _einsum("ic,cs->is", R_trunc, a1,
+                            acc=acc).astype(y.dtype)
+    return _einsum("is,us->iu", d * resid, a2, acc=acc)

@@ -21,6 +21,12 @@ reference loops them serially in Python (`demethify/demethify.py:209-213`).
 import jax
 import jax.numpy as jnp
 
+from demethify_tpu.ops.gram import HIGHEST, accum_dtype
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
+
 
 def _power_iteration_sqnorm(G, n_iter=50):
     """Largest eigenvalue of PSD G (spectral norm), via power iteration."""
@@ -28,11 +34,11 @@ def _power_iteration_sqnorm(G, n_iter=50):
     v = jnp.full((p,), 1.0 / jnp.sqrt(p), dtype=G.dtype)
 
     def body(_, v):
-        w = G @ v
+        w = _mm(G, v)
         return w / jnp.maximum(jnp.linalg.norm(w), 1e-30)
 
     v = jax.lax.fori_loop(0, n_iter, body, v)
-    return jnp.maximum(v @ (G @ v), 1e-30)
+    return jnp.maximum(_mm(v, _mm(G, v)), 1e-30)
 
 
 def nnls_gram(G, c, n_iter: int = 600):
@@ -46,7 +52,7 @@ def nnls_gram(G, c, n_iter: int = 600):
 
     def body(_, carry):
         x, z, t = carry
-        x_new = jnp.maximum(z - (G @ z - c) / L, 0.0)
+        x_new = jnp.maximum(z - (_mm(G, z) - c) / L, 0.0)
         t_new = (1.0 + jnp.sqrt(1.0 + 4.0 * t * t)) / 2.0
         z_new = x_new + ((t - 1.0) / t_new) * (x_new - x)
         return (x_new, z_new, t_new)
@@ -72,8 +78,8 @@ def nnls_gram(G, c, n_iter: int = 600):
 
 def nnls(A, y, n_iter: int = 600):
     """min_x>=0 ||Ax - y||^2 (scipy.optimize.nnls semantics, fixed budget)."""
-    G = A.T @ A
-    c = A.T @ y
+    G = _mm(A.T, A)
+    c = _mm(A.T, y)
     return nnls_gram(G, c, n_iter=n_iter)
 
 
@@ -84,20 +90,18 @@ def wls_intercept(y, w, X, n_iter: int = 600):
     Returns (p,) simplex-normalized nonneg coefficients (intercept discarded,
     as the reference does at `init_func.py:12`).
     """
-    from demethify_tpu.ops.gram import accum_dtype
-
     acc = accum_dtype(X)
     y = y.astype(acc)
     w = w.astype(acc)
     X = X.astype(acc)
     wsum = jnp.maximum(jnp.sum(w), 1e-30)
-    x_off = (w @ X) / wsum
-    y_off = (w @ y) / wsum
+    x_off = _mm(w, X) / wsum
+    y_off = _mm(w, y) / wsum
     Xc = X - x_off[None, :]
     yc = y - y_off
     # normal equations of the sqrt(w)-rescaled centered system, one CpG pass
-    G = Xc.T @ (w[:, None] * Xc)
-    c = Xc.T @ (w * yc)
+    G = _mm(Xc.T, w[:, None] * Xc)
+    c = _mm(Xc.T, w * yc)
     coef = nnls_gram(G, c, n_iter=n_iter)
     return coef / jnp.maximum(coef.sum(), 1e-10)
 

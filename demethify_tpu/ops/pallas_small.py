@@ -1,15 +1,28 @@
-"""Pallas kernels for the LATENCY-bound small-tensor inner loops.
+"""Pallas kernels (Triton route) for the alpha FISTA and Frank-Wolfe loops.
 
-The alpha FISTA loop and the Frank-Wolfe loop operate on O(p^2 n_s) data
-(p ~ 6-30, n_s ~ 10) but execute 20-500 sequential steps of ~5-8 XLA ops
-each; on TPU every op is a separate on-device kernel issue (~1-2 us), so
-the loops cost 0.17 ms (FISTA x20) to ~4 ms (FW x500) per outer iteration
-while touching kilobytes. These kernels run the ENTIRE loop inside one
-Pallas program — everything stays in VMEM/registers, one launch total.
+Both loops run 20 (FISTA) to 500 (Frank-Wolfe, purity mode) strictly
+sequential steps per outer iteration on kilobytes of data: the per-sample
+Grams G (n_s, p, p), b (p, n_s) and alpha (p, n_s). In plain XLA every step
+is a handful of separate kernels (the G a contraction, the simplex
+projection's comparisons and sums, the elementwise tail), so the loop costs
+one launch per operation per step. Here one program per sample column holds
+G_s, b_s and its alpha column in registers and runs the whole loop with
+``lax.fori_loop``; alpha is written once.
 
-Math is identical to ops/fista.fista_alpha_gram and
-ops/frank_wolfe.frank_wolfe_gram (tests require exact trajectory parity in
-interpret mode). Off-TPU they run interpreted.
+Columns are independent: the gradient, the simplex projection and the
+Frank-Wolfe vertex choice act per sample, and the Nesterov scalars are
+data-independent. So the grid is one program per sample, p is padded to a
+power of two (masked), and batched members (restarts, bootstrap
+replicates, masked sweep ranks) come from ``jax.vmap`` over the call,
+which adds a grid axis.
+
+The math is that of ``ops.fista.fista_alpha_gram`` and
+``ops.frank_wolfe.frank_wolfe_gram``; the simplex projection uses the
+sort-free form "theta from the largest value set whose shifted mean stays
+below its smallest member", which gives the same threshold as the
+reference's sorted cumsum scan (ties cannot straddle the threshold).
+``interpret`` is always passed by the caller: the kernels run interpreted
+only where a test asks for it.
 """
 
 import functools
@@ -17,664 +30,231 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+
+from demethify_tpu.ops.fista import (
+    _nesterov_step,
+    _run_steps,
+    fista_alpha_gram,
+)
+from demethify_tpu.ops.frank_wolfe import frank_wolfe_gram
+
+MAX_P = 32          # largest padded p kept in one program's registers
+_MIN_P = 8
+_MASK_NEG = -1e30
+_BIG = 3.0e38
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def padded_p(p: int) -> int:
+    """Power-of-two row count a column occupies inside the kernels."""
+    return max(_MIN_P, 1 << (p - 1).bit_length())
 
 
-def _project_cols(v, p):
-    """Columns of v (p, n) onto the simplex — rank-matrix form (exactly
-    ops.simplex.project_columns_to_simplex; sort-free, VPU-only)."""
-    gt = (v[:, None, :] > v[None, :, :]).astype(v.dtype)
-    eq = (v[:, None, :] == v[None, :, :]).astype(v.dtype)
-    lower = jnp.tril(jnp.ones((p, p), v.dtype), k=-1)
-    rank = jnp.sum(gt, axis=0) + jnp.sum(lower[:, :, None] * eq, axis=0)
-    # tpu.iota only produces integers; convert afterwards
-    iota_p11 = jax.lax.broadcasted_iota(jnp.int32, (p, 1, 1),
-                                        0).astype(v.dtype)
-    perm = (rank[None, :, :] == iota_p11).astype(v.dtype)
-    u = jnp.sum(perm * v[None, :, :], axis=1)
-    tri = jnp.tril(jnp.ones((p, p), v.dtype))
-    pi = jax.lax.dot_general(tri, u, (((1,), (0,)), ((), ())),
-                             preferred_element_type=v.dtype) - 1.0
-    j1 = (jax.lax.broadcasted_iota(jnp.int32, (p, 1),
-                                   0).astype(v.dtype) + 1.0)
-    cond = (u - pi / j1) > 0
-    idx = jnp.where(cond, jax.lax.broadcasted_iota(jnp.int32, u.shape, 0),
-                    -1)
-    rho = jnp.max(idx, axis=0)
-    rho_onehot = (jax.lax.broadcasted_iota(jnp.int32, u.shape, 0)
-                  == rho[None, :]).astype(v.dtype)
-    theta = jnp.sum(pi * rho_onehot, axis=0) / (rho + 1).astype(v.dtype)
-    return jnp.maximum(v - theta[None, :], 0.0)
+def use_kernel(platform: str, p: int, dtype) -> bool:
+    """Whether the loops on (p, n_s) columns of ``dtype`` take the kernel
+    on ``platform`` (a ``lax.platform_dependent`` platform name)."""
+    return (platform == "cuda" and padded_p(p) <= MAX_P
+            and jnp.dtype(dtype) == jnp.float32)
 
 
-def _grad_from_grams(g_ref, b, a_t, p, n_s):
-    """grad = b - G a_t per sample, unrolled over the tiny sample axis."""
-    cols = []
-    for s in range(n_s):
-        G_s = g_ref[s]
-        at_s = a_t[:, s:s + 1]
-        cols.append(b[:, s:s + 1] - jax.lax.dot_general(
-            G_s, at_s, (((1,), (0,)), ((), ())),
-            preferred_element_type=a_t.dtype))
-    return jnp.concatenate(cols, axis=1)
+def _per_sample(*block):
+    return pl.BlockSpec((None,) + block, lambda s: (s,) + (0,) * len(block))
 
 
-# ---------------------------------------------------------------------------
-# alpha FISTA loop
-# ---------------------------------------------------------------------------
-
-def _alpha_kernel(scal_ref, g_ref, b_ref, a_ref, ap_ref,
-                  a_out_ref, ap_out_ref, *, n_steps, p, n_s, row_mask_ref):
-    l_h = scal_ref[0, 0]
-    a0_init = scal_ref[0, 1]
-    l_h_prev0 = scal_ref[0, 2]
-    b = b_ref[:]
-
-    def body(_, carry):
-        alpha, ap, a, l_prev = carry
-        a0 = a
-        a2 = (1.0 + jnp.sqrt(1.0 + 4.0 * a0 * a0)) / 2.0
-        beta = jnp.minimum((a0 - 1.0) / a2,
-                           0.9999 * jnp.sqrt(l_prev / l_h))
-        a_t = alpha + beta * (alpha - ap)
-        grad = _grad_from_grams(g_ref, b, a_t, p, n_s)
-        v = a_t + grad / l_h
-        if row_mask_ref is not None:
-            v = jnp.where(row_mask_ref[:] > 0, v, -1e30)
-        a_new = _project_cols(v, p)
-        return (a_new, alpha, a2, l_h)
-
-    alpha, ap, _, _ = jax.lax.fori_loop(
-        0, n_steps, body, (a_ref[:], ap_ref[:], a0_init, l_h_prev0))
-    a_out_ref[:] = alpha
-    ap_out_ref[:] = ap
+def _whole(n):
+    return pl.BlockSpec((n,), lambda s: (0,))
 
 
-def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
-                row_mask=None):
-    """Whole alpha FISTA inner loop in one kernel launch.
+def _pad_rows(x, P):
+    """(p, n_s) -> (n_s, P), zero rows appended."""
+    return jnp.pad(x.T, ((0, 0), (0, P - x.shape[0])))
 
-    Same carry convention as fista_alpha_gram: returns
-    (alpha, alpha_prev, a_new, l_h_prev_new).
-    """
-    p, n_s = alpha.shape
-    dtype = alpha.dtype
-    scal = jnp.reshape(jnp.stack([l_h.astype(dtype), a.astype(dtype),
-                                  l_h_prev.astype(dtype)]), (1, 3))
 
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    in_specs = [pl.BlockSpec((1, 3), memory_space=pltpu.SMEM),
-                full(G.shape), full(b.shape), full(alpha.shape),
-                full(alpha.shape)]
-    args = [scal, G.astype(dtype), b.astype(dtype), alpha, alpha_prev]
-    if row_mask is not None:
-        in_specs.append(full((p, 1)))
-        args.append(row_mask.astype(dtype).reshape(p, 1))
+def _pad_grams(G, P):
+    p = G.shape[1]
+    return jnp.pad(G, ((0, 0), (0, P - p), (0, P - p)))
 
-        def kern(scal_ref, g_ref, b_ref, a_ref, ap_ref, mask_ref,
-                 a_out_ref, ap_out_ref):
-            _alpha_kernel(scal_ref, g_ref, b_ref, a_ref, ap_ref,
-                          a_out_ref, ap_out_ref, n_steps=n_steps, p=p,
-                          n_s=n_s, row_mask_ref=mask_ref)
-    else:
-        kern = functools.partial(_alpha_kernel, n_steps=n_steps, p=p,
-                                 n_s=n_s, row_mask_ref=None)
 
-    a_new, ap_new = pl.pallas_call(
-        kern,
+def _call(kernel, n_s, P, in_specs, out_count, dtype, interpret, args):
+    out = jax.ShapeDtypeStruct((n_s, P), dtype)
+    return pl.pallas_call(
+        kernel,
+        grid=(n_s,),
         in_specs=in_specs,
-        out_specs=[full(alpha.shape)] * 2,
-        out_shape=[jax.ShapeDtypeStruct(alpha.shape, dtype)] * 2,
-        interpret=_interpret(),
+        out_specs=[_per_sample(P)] * out_count,
+        out_shape=[out] * out_count,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
     )(*args)
 
+
+def _gram_matvec(G, v):
+    """(G v) for one column: G (P, P), v (P,)."""
+    return jnp.sum(G * v[None, :], axis=1)
+
+
+def _project_simplex(v, active):
+    """Euclidean projection of one column onto {x >= 0, sum(x) = 1} over
+    the ``active`` rows; inactive rows come out 0.
+
+    For each i, C_i = #{j: v_j >= v_i} and S_i = sum of those v_j. Row i
+    is in the support iff v_i > (S_i - 1) / C_i, and theta is that mean
+    at the support row with the largest C_i."""
+    v = jnp.where(active, v, _MASK_NEG)
+    ge = v[None, :] >= v[:, None]                     # ge[i, j]: v_j >= v_i
+    count = jnp.sum(ge.astype(v.dtype), axis=1)
+    total = jnp.sum(jnp.where(ge, v[None, :], 0.0), axis=1)
+    shift = (total - 1.0) / count
+    support = active & (v - shift > 0)
+    c_max = jnp.max(jnp.where(support, count, 0.0))
+    theta = jnp.max(jnp.where(support & (count == c_max), shift, -_BIG))
+    return jnp.maximum(v - theta, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# alpha FISTA
+# ---------------------------------------------------------------------------
+
+def _fista_kernel(scal_ref, g_ref, b_ref, a_ref, ap_ref, mask_ref,
+                  a_out_ref, ap_out_ref, *, n_steps):
+    a0 = scal_ref[0]
+    l_prev0 = scal_ref[1]
+    l_h = scal_ref[2]
+    G = g_ref[...]
+    b = b_ref[...]
+    active = mask_ref[...] > 0
+
+    def body(_, carry):
+        alpha, alpha_prev, a, l_prev = carry
+        a2 = (1.0 + jnp.sqrt(1.0 + 4.0 * a * a)) / 2.0
+        beta = jnp.minimum((a - 1.0) / a2, 0.9999 * jnp.sqrt(l_prev / l_h))
+        a_t = alpha + beta * (alpha - alpha_prev)
+        grad = b - _gram_matvec(G, a_t)
+        return (_project_simplex(a_t + grad / l_h, active), alpha, a2, l_h)
+
+    alpha, alpha_prev, _, _ = jax.lax.fori_loop(
+        0, n_steps, body, (a_ref[...], ap_ref[...], a0, l_prev0))
+    a_out_ref[...] = alpha
+    ap_out_ref[...] = alpha_prev
+
+
+def fista_alpha(alpha, alpha_prev, a, l_h_prev, l_h, G, b, n_steps: int,
+                row_mask=None, *, interpret: bool):
+    """The whole alpha FISTA loop in one launch; same arguments and
+    results as ``fista_alpha_gram``."""
+    p, n_s = alpha.shape
+    P = padded_p(p)
+    dtype = alpha.dtype
+    # the three Nesterov scalars, padded to 4: Triton blocks are powers
+    # of two
+    scal = jnp.stack([jnp.asarray(x, dtype)
+                      for x in (a, l_h_prev, l_h, 0.0)])
+    mask = jnp.ones((p,), dtype) if row_mask is None else \
+        row_mask.astype(dtype)
+    mask = jnp.pad(mask, (0, P - p))
+    a_new, ap_new = _call(
+        functools.partial(_fista_kernel, n_steps=n_steps), n_s, P,
+        [_whole(4), _per_sample(P, P), _per_sample(P), _per_sample(P),
+         _per_sample(P), _whole(P)], 2, dtype, interpret,
+        (scal, _pad_grams(G.astype(dtype), P), _pad_rows(b.astype(dtype), P),
+         _pad_rows(alpha, P), _pad_rows(alpha_prev, P), mask))
+
+    # the scalar Nesterov carry is data-independent: replay it here
     def scal_body(_, carry):
-        a, l_prev = carry
-        return ((1.0 + jnp.sqrt(1.0 + 4.0 * a * a)) / 2.0, l_h)
+        return (_nesterov_step(carry[0]), l_h)
 
-    a_out, l_h_prev_out = jax.lax.fori_loop(0, n_steps, scal_body,
-                                            (a, l_h_prev))
-    return a_new, ap_new, a_out, l_h_prev_out
+    a_out, l_prev_out = _run_steps(scal_body, (a, l_h_prev), n_steps)
+    return a_new[:, :p].T, ap_new[:, :p].T, a_out, l_prev_out
 
 
 # ---------------------------------------------------------------------------
-# Frank-Wolfe loop
+# Frank-Wolfe
 # ---------------------------------------------------------------------------
 
-def _fw_run(grad_fn, alpha0, purity, p, p1, n_steps):
-    """The whole FW schedule shared by all three FW kernels.
+def _first_argmin(g, iota, P):
+    return jnp.min(jnp.where(g == jnp.min(g), iota, P))
 
-    Per-column block LMO with FIRST-OCCURRENCE argmin via min-over-index
-    (row == min(row where value == min)) — two cheap VPU reductions
-    instead of the round-3 form's two triangular MXU dots per step
-    (cumsum has no Mosaic lowering; the tri-matmul emulation made every
-    one of the 500 steps pay two systolic-array launches on (p, p)
-    operands). Ties resolve to the smallest row index, exactly matching
-    jnp.argmin / ops.frank_wolfe._lmo_columns.
 
-    The schedule is CHUNK-UNROLLED: Mosaic lowers fori_loop only at
-    unroll=1, which serializes the scalar gamma chain and re-issues the
-    loop overhead per step (the U megakernel's unrolling measured ~2.3x;
-    the FW chain is the purity solver's dominant cost). gamma arithmetic
-    is bit-identical to the rolled form (same f32 int-convert/add/divide
-    per step, k now partially constant-folded).
-    """
-    dtype = alpha0.dtype
-    n_cols = alpha0.shape[1]
-    row = jax.lax.broadcasted_iota(jnp.int32, (p, n_cols), 0)
-    in_known = (row < p1)
-    big = jnp.asarray(3.4e38, dtype)
+def _fw_kernel(g_ref, b_ref, a_ref, mass_ref, a_out_ref, *, n_steps, p1,
+               p):
+    G = g_ref[...]
+    b = b_ref[...]
+    mass = mass_ref[...]
+    P = b.shape[0]
+    iota = jax.lax.broadcasted_iota(jnp.int32, (P,), 0)
+    known = iota < p1
+    unknown = (iota >= p1) & (iota < p)
 
     def body(k, alpha):
-        grad = grad_fn(alpha)                          # = G a - b
-        g1 = jnp.where(in_known, grad, big)
-        g2 = jnp.where(in_known, big, grad)
-        m1 = jnp.min(g1, axis=0, keepdims=True)
-        m2 = jnp.min(g2, axis=0, keepdims=True)
-        idx1 = jnp.min(jnp.where(g1 == m1, row, p), axis=0,
-                       keepdims=True)
-        idx2 = jnp.min(jnp.where(g2 == m2, row, p), axis=0,
-                       keepdims=True)
-        s = ((row == idx1).astype(dtype) * purity
-             + (row == idx2).astype(dtype) * (1.0 - purity))
-        gamma = 2.0 / (jnp.asarray(k, jnp.int32).astype(dtype) + 2.0)
-        return (1.0 - gamma) * alpha + gamma * s
+        grad = _gram_matvec(G, alpha) - b
+        i1 = _first_argmin(jnp.where(known, grad, _BIG), iota, P)
+        i2 = _first_argmin(jnp.where(unknown, grad, _BIG), iota, P)
+        vertex = jnp.where((iota == i1) | (iota == i2), mass, 0.0)
+        gamma = 2.0 / (k.astype(alpha.dtype) + 2.0)
+        return (1.0 - gamma) * alpha + gamma * vertex
 
-    if n_steps <= 64:
-        alpha = alpha0
-        for k in range(n_steps):
-            alpha = body(k, alpha)
-        return alpha
-    chunk = next(c for c in (25, 20, 16, 10, 8, 5, 4, 2, 1)
-                 if n_steps % c == 0)
-
-    def chunk_body(kc, alpha):
-        for j in range(chunk):
-            alpha = body(kc * chunk + j, alpha)
-        return alpha
-
-    return jax.lax.fori_loop(0, n_steps // chunk, chunk_body, alpha0)
+    a_out_ref[...] = jax.lax.fori_loop(0, n_steps, body, a_ref[...])
 
 
-def _fw_kernel(g_ref, b_ref, a_ref, pur_ref, a_out_ref, *, n_steps, p,
-               p1, n_s):
-    b = b_ref[:]
-    purity = pur_ref[:]                      # (1, n_s)
-    a_out_ref[:] = _fw_run(
-        lambda alpha: -_grad_from_grams(g_ref, b, alpha, p, n_s),
-        a_ref[:], purity, p, p1, n_steps)
-
-
-def fw_phase(G, b, alpha1, alpha2, purity, n_steps: int):
-    """Whole Frank-Wolfe loop in one kernel launch. Same semantics as
-    frank_wolfe_gram: returns (alpha1, alpha2)."""
+def frank_wolfe(alpha1, alpha2, G, b, purity, max_iter: int, *,
+                interpret: bool):
+    """The whole Frank-Wolfe loop in one launch; same arguments and
+    results as ``frank_wolfe_gram``."""
     p1 = alpha1.shape[0]
     alpha = jnp.concatenate([alpha1, alpha2], axis=0)
     p, n_s = alpha.shape
+    P = padded_p(p)
     dtype = alpha.dtype
-
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_fw_kernel, n_steps=n_steps, p=p, p1=p1,
-                          n_s=n_s),
-        in_specs=[full(G.shape), full(b.shape), full(alpha.shape),
-                  full((1, n_s))],
-        out_specs=full(alpha.shape),
-        out_shape=jax.ShapeDtypeStruct(alpha.shape, dtype),
-        interpret=_interpret(),
-    )(G.astype(dtype), b.astype(dtype), alpha,
-      purity.astype(dtype).reshape(1, n_s))
+    purity = purity.astype(dtype)
+    rows = jnp.arange(P)[None, :]
+    mass = jnp.where(rows < p1, purity[:, None],
+                     jnp.where(rows < p, 1.0 - purity[:, None], 0.0))
+    (out,) = _call(
+        functools.partial(_fw_kernel, n_steps=max_iter, p1=p1, p=p), n_s, P,
+        [_per_sample(P, P), _per_sample(P), _per_sample(P), _per_sample(P)],
+        1, dtype, interpret,
+        (_pad_grams(G.astype(dtype), P), _pad_rows(b.astype(dtype), P),
+         _pad_rows(alpha, P), mass))
+    out = out[:, :p].T
     return out[:p1], out[p1:]
 
 
 # ---------------------------------------------------------------------------
-# fused glue kernels: assemble Grams + whole alpha loop + Lipschitz/cost
-# scalars in ONE launch (consumes the megakernel's raw outputs directly,
-# leaving zero XLA-level small-op glue per outer iteration)
+# the choice between the kernels and the jnp loops
 # ---------------------------------------------------------------------------
 
-def _assemble_G_b(gtt_ref, bt_ref, gu_ref, bu_ref, n_ct):
-    gu = gu_ref[:]                               # (n_s, n_u, p)
-    if n_ct:
-        g_ut = gu[:, :, :n_ct]                   # (n_s, n_u, n_ct)
-        top = jnp.concatenate([gtt_ref[:], jnp.swapaxes(g_ut, 1, 2)],
-                              axis=2)
-        G = jnp.concatenate([top, gu], axis=1)
-        b = jnp.concatenate([bt_ref[:], bu_ref[:]], axis=0)
-    else:
-        G, b = gu, bu_ref[:]
-    return G, b
+def _on_platform(p, dtype, kernel_fn, jnp_fn, *args):
+    def branch(platform):
+        if use_kernel(platform, p, dtype):
+            return functools.partial(kernel_fn, interpret=False)
+        return jnp_fn
+    return jax.lax.platform_dependent(*args, cuda=branch("cuda"),
+                                      default=branch("default"))
 
 
-def _cost_from_grad(ydy, b, alpha, grad):
-    """cost = sum ydy - sum(b*a) - sum(a*grad) with grad = b - G a
-    (exactly weighted_cost_gram up to reassociation)."""
-    return (jnp.sum(ydy) - jnp.sum(b * alpha) - jnp.sum(alpha * grad))
+def alpha_loop(alpha, alpha_prev, a, l_h_prev, l_h, G, b, n_steps: int,
+               row_mask=None):
+    """``fista_alpha_gram`` semantics; the kernel where ``use_kernel``
+    says so for the platform the computation is lowered for."""
+    def kern(*args, interpret):
+        return fista_alpha(*args, n_steps, row_mask, interpret=interpret)
+
+    def xla(*args):
+        return fista_alpha_gram(*args, n_steps, row_mask=row_mask)
+
+    return _on_platform(alpha.shape[0], alpha.dtype, kern, xla,
+                        alpha, alpha_prev, a, l_h_prev, l_h, G, b)
 
 
-def _alpha_full_kernel(scal_ref, gtt_ref, bt_ref, gu_ref, bu_ref,
-                       usq_ref, ydy_ref, a_ref, ap_ref,
-                       a_out_ref, ap_out_ref, out_ref, *, n_steps, p,
-                       n_s, n_ct, n_u, row_mask_ref):
-    a0_init = scal_ref[0, 0]
-    l_h_prev0 = scal_ref[0, 1]
-    rt_sq = scal_ref[0, 2]
-    dmax2 = scal_ref[0, 3]
-    G, b = _assemble_G_b(gtt_ref, bt_ref, gu_ref, bu_ref, n_ct)
-    l_h = (rt_sq + usq_ref[0, 0]) * dmax2
+def fw_loop(alpha1, alpha2, G, b, purity, max_iter: int):
+    """``frank_wolfe_gram`` semantics, chosen like ``alpha_loop``."""
+    def kern(*args, interpret):
+        return frank_wolfe(*args, max_iter, interpret=interpret)
 
-    def body(_, carry):
-        alpha, ap, a, l_prev = carry
-        a0 = a
-        a2 = (1.0 + jnp.sqrt(1.0 + 4.0 * a0 * a0)) / 2.0
-        beta = jnp.minimum((a0 - 1.0) / a2,
-                           0.9999 * jnp.sqrt(l_prev / l_h))
-        a_t = alpha + beta * (alpha - ap)
-        grad = _grad_from_grams(G, b, a_t, p, n_s)
-        v = a_t + grad / l_h
-        if row_mask_ref is not None:
-            v = jnp.where(row_mask_ref[:] > 0, v, -1e30)
-        a_new = _project_cols(v, p)
-        return (a_new, alpha, a2, l_h)
+    def xla(*args):
+        return frank_wolfe_gram(*args, max_iter)
 
-    alpha, ap, a_fin, l_prev_fin = jax.lax.fori_loop(
-        0, n_steps, body, (a_ref[:], ap_ref[:], a0_init, l_h_prev0))
-    a_out_ref[:] = alpha
-    ap_out_ref[:] = ap
-
-    grad = _grad_from_grams(G, b, alpha, p, n_s)
-    cost = _cost_from_grad(ydy_ref[:], b, alpha, grad)
-    a2blk = alpha[p - n_u:]
-    l_w = jnp.sum(a2blk * a2blk) * dmax2
-    out_ref[:] = jnp.stack([a_fin, l_prev_fin, l_w,
-                            cost]).reshape(1, 4)
-
-
-def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev,
-                     a, l_h_prev, rt_sq, dmax2, n_steps: int, n_u: int,
-                     row_mask=None):
-    """One launch: Gram assembly + alpha FISTA loop + l_h/l_w/cost.
-
-    gtt (n_s, n_ct, n_ct) / bt (n_ct, n_s) are the loop-invariant known
-    blocks (empty n_ct=0 for unsupervised); gu (n_s, n_u, p) / bu
-    (n_u, n_s) / usq (scalar) come from the u_phase_grams megakernel.
-    Returns (alpha, alpha_prev, a_new, l_h_prev_new, l_w_new, cost).
-    """
-    p, n_s = alpha.shape
-    n_ct = p - n_u
-    dtype = alpha.dtype
-    scal = jnp.reshape(jnp.stack([a.astype(dtype),
-                                  l_h_prev.astype(dtype),
-                                  jnp.asarray(rt_sq, dtype),
-                                  jnp.asarray(dmax2, dtype)]), (1, 4))
-    if n_ct == 0:
-        gtt = jnp.zeros((n_s, 1, 1), dtype)
-        bt = jnp.zeros((1, n_s), dtype)
-
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    in_specs = [pl.BlockSpec((1, 4), memory_space=pltpu.SMEM),
-                full(gtt.shape), full(bt.shape), full(gu.shape),
-                full(bu.shape), full((1, 1)), full((1, n_s)),
-                full(alpha.shape), full(alpha.shape)]
-    args = [scal, gtt.astype(dtype), bt.astype(dtype), gu.astype(dtype),
-            bu.astype(dtype), usq.astype(dtype).reshape(1, 1),
-            ydy.astype(dtype).reshape(1, n_s), alpha, alpha_prev]
-    if row_mask is not None:
-        in_specs.append(full((p, 1)))
-        args.append(row_mask.astype(dtype).reshape(p, 1))
-
-        def kern(scal_ref, gtt_ref, bt_ref, gu_ref, bu_ref, usq_ref,
-                 ydy_ref, a_ref, ap_ref, mask_ref, a_out, ap_out, out):
-            _alpha_full_kernel(scal_ref, gtt_ref, bt_ref, gu_ref, bu_ref,
-                               usq_ref, ydy_ref, a_ref, ap_ref,
-                               a_out, ap_out, out, n_steps=n_steps, p=p,
-                               n_s=n_s, n_ct=n_ct, n_u=n_u,
-                               row_mask_ref=mask_ref)
-    else:
-        kern = functools.partial(_alpha_full_kernel, n_steps=n_steps, p=p,
-                                 n_s=n_s, n_ct=n_ct, n_u=n_u,
-                                 row_mask_ref=None)
-
-    a_new, ap_new, out = pl.pallas_call(
-        kern,
-        in_specs=in_specs,
-        out_specs=[full(alpha.shape), full(alpha.shape), full((1, 4))],
-        out_shape=[jax.ShapeDtypeStruct(alpha.shape, dtype)] * 2
-        + [jax.ShapeDtypeStruct((1, 4), dtype)],
-        interpret=_interpret(),
-    )(*args)
-    return (a_new, ap_new, out[0, 0], out[0, 1], out[0, 2], out[0, 3])
-
-
-# ---------------------------------------------------------------------------
-# member-batched glue kernels: ONE launch for ALL restart members. The
-# vmapped single-member kernels serialize across the lifted grid axis
-# (each grid step replays the whole latency-bound inner loop on tiny
-# data), so at B members the alpha/FW phase costs B x its single-member
-# latency. Here members fold into the COLUMN axis (c = s*B + b): every
-# per-step op is a row op on (rows, B*n_s) arrays, so the step cost is
-# independent of B. The per-column gradient b - G_c a_c is computed as p
-# broadcast-FMAs against a (p, p, C) stack of per-column Gram matrices
-# (host-assembled; XLA handles the layout shuffles), and per-member
-# reductions (l_w, cost) are one (1, C) x (C, B) selector dot.
-# ---------------------------------------------------------------------------
-
-
-def _grad_cols(g3_ref, b, a_t, p):
-    """grad[:, c] = b[:, c] - G_c a_t[:, c] with G3[q][i, c] = G_c[i, q];
-    p broadcast-FMAs on (p, C) rows — cost independent of the member
-    count."""
-    acc = b
-    for q in range(p):
-        acc = acc - g3_ref[q] * a_t[q:q + 1]
-    return acc
-
-
-def _member_sums(rows, sel_ref):
-    """(k, C) per-column values -> (k, B) per-member sums via one dot
-    against the (C, B) member-selector one-hot."""
-    return jax.lax.dot_general(rows, sel_ref[:],
-                               (((1,), (0,)), ((), ())),
-                               preferred_element_type=rows.dtype)
-
-
-def _alpha_full_multi_kernel(env_ref, g3_ref, b_ref, lh_ref, a0_ref,
-                             lp_ref, a_ref, ap_ref, sel_ref,
-                             a_out_ref, ap_out_ref, out_ref, *, n_steps,
-                             p, n_u, row_mask_ref):
-    # env rows (2, B): per-member dmax^2 and sum(ydy) — constant across
-    # members in the restart case, per-replicate in the weighted
-    # bootstrap (each resample has its own surviving-row max coverage
-    # and its own w-weighted ydy)
-    dmax2_b = env_ref[0:1]                           # (1, B)
-    ydy_sum_b = env_ref[1:2]                         # (1, B)
-    b = b_ref[:]
-    l_h = lh_ref[:]                                  # (1, C)
-
-    def body(_, carry):
-        alpha, ap, a, l_prev = carry                 # a/l_prev (1, C)
-        a2 = (1.0 + jnp.sqrt(1.0 + 4.0 * a * a)) / 2.0
-        beta = jnp.minimum((a - 1.0) / a2,
-                           0.9999 * jnp.sqrt(l_prev / l_h))
-        a_t = alpha + beta * (alpha - ap)
-        grad = _grad_cols(g3_ref, b, a_t, p)
-        v = a_t + grad / l_h
-        if row_mask_ref is not None:
-            v = jnp.where(row_mask_ref[:] > 0, v, -1e30)
-        a_new = _project_cols(v, p)
-        return (a_new, alpha, a2, l_h)
-
-    alpha, ap, _, _ = jax.lax.fori_loop(
-        0, n_steps, body, (a_ref[:], ap_ref[:], a0_ref[:], lp_ref[:]))
-    a_out_ref[:] = alpha
-    ap_out_ref[:] = ap
-
-    grad = _grad_cols(g3_ref, b, alpha, p)
-    colcost = -jnp.sum(b * alpha + alpha * grad, axis=0, keepdims=True)
-    a2blk = alpha[p - n_u:]
-    lw_col = jnp.sum(a2blk * a2blk, axis=0, keepdims=True)
-    per_member = _member_sums(jnp.concatenate([lw_col, colcost], axis=0),
-                              sel_ref)               # (2, B)
-    out_ref[:] = jnp.concatenate(
-        [per_member[0:1] * dmax2_b, per_member[1:2] + ydy_sum_b], axis=0)
-
-
-def _multi_layout(x_bps, p):
-    """(B, p, n_s) -> (p, C) with column order c = s*B + b."""
-    n_b, _, n_s = x_bps.shape
-    return jnp.transpose(x_bps, (1, 2, 0)).reshape(p, n_s * n_b)
-
-
-def _multi_unlayout(x_pc, n_b, n_s):
-    """(p, C) -> (B, p, n_s), inverse of _multi_layout."""
-    p = x_pc.shape[0]
-    return jnp.transpose(x_pc.reshape(p, n_s, n_b), (2, 0, 1))
-
-
-def _tile_members(v_b, n_s):
-    """(B,) per-member scalars -> (1, C) row in c = s*B + b order."""
-    return jnp.tile(v_b, (n_s,)).reshape(1, -1)
-
-
-def _assemble_G3(gtt, gu_b, n_ct):
-    """Per-column Gram stack G3 (p, p, C) with G3[q, i, c] = G_c[i, q],
-    c = s*B + b. gu_b: (B, n_s, n_u, p_r) from the multi megakernel;
-    gtt: (n_s, n_ct, n_ct) loop-invariant known block, shared across
-    members — or (B, n_s, n_ct, n_ct) per member (weighted bootstrap:
-    each replicate's known Grams carry its own row weights). None for
-    n_ct=0. Mirrors _assemble_G_b's [known; unknown] row order."""
-    n_b, n_s = gu_b.shape[0], gu_b.shape[1]
-    if n_ct:
-        top_right = jnp.swapaxes(gu_b[..., :n_ct], 2, 3)
-        gtt_b = (gtt if gtt.ndim == 4
-                 else jnp.broadcast_to(gtt, (n_b,) + gtt.shape))
-        top = jnp.concatenate([gtt_b, top_right],
-                              axis=3)                # (B, n_s, n_ct, p)
-        G_full = jnp.concatenate([top, gu_b], axis=2)
-    else:
-        G_full = gu_b                                # (B, n_s, n_u, n_u)
-    p = G_full.shape[-1]
-    return jnp.transpose(G_full, (3, 2, 1, 0)).reshape(p, p,
-                                                       n_s * n_b)
-
-
-def _assemble_b_cols(bt, bu_b, n_ct):
-    """Per-column linear term b (p, C): known rows bt[:, s] (shared
-    (n_ct, n_s), or per-member (B, n_ct, n_s)); unknown rows from
-    bu_b (B, n_u, n_s)."""
-    n_b, n_u, n_s = bu_b.shape
-    bu = jnp.transpose(bu_b, (1, 2, 0)).reshape(n_u, n_s * n_b)
-    if n_ct:
-        if bt.ndim == 3:
-            bk = jnp.transpose(bt, (1, 2, 0)).reshape(n_ct, n_s * n_b)
-        else:
-            bk = jnp.broadcast_to(
-                bt[:, :, None], (n_ct, n_s, n_b)).reshape(n_ct,
-                                                          n_s * n_b)
-        return jnp.concatenate([bk, bu], axis=0)
-    return bu
-
-
-def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
-                           alpha_prev_b, a_b, l_h_prev_b, rt_sq, dmax2,
-                           n_steps: int, n_u: int, row_mask_b=None):
-    """Member-batched alpha_phase_full: ONE launch runs every restart
-    member's whole alpha FISTA loop (vs one serialized grid step per
-    member when vmapping the single-member kernel).
-
-    gu_b (B, n_s, n_u, p_r) / bu_b (B, n_u, n_s) / usq_b (B,) come from
-    u_phase_grams_multi; alpha_b/alpha_prev_b (B, p, n_s);
-    a_b/l_h_prev_b (B,). The loop invariants gtt/bt/ydy/rt_sq/dmax2 are
-    shared across members (restart batches) OR per-member — gtt
-    (B, n_s, n_ct, n_ct), bt (B, n_ct, n_s), ydy (B, n_s), rt_sq/dmax2
-    (B,) — for the weighted bootstrap, where every replicate carries its
-    own w-weighted known blocks. ``row_mask_b`` (B, p) optionally
-    restricts each member's active alpha rows (padded model-selection
-    sweeps). Returns per-member
-    (alpha_b, alpha_prev_b, a_new_b, l_h_prev_new_b, l_w_b, cost_b).
-    """
-    n_b, p, n_s = alpha_b.shape
-    n_ct = p - n_u
-    C = n_s * n_b
-    dtype = alpha_b.dtype
-
-    rt_sq_b = jnp.broadcast_to(jnp.asarray(rt_sq, dtype), (n_b,))
-    dmax2_b = jnp.broadcast_to(jnp.asarray(dmax2, dtype), (n_b,))
-    l_h_b = (rt_sq_b + usq_b.astype(dtype)) * dmax2_b
-    ydy_sum_b = jnp.broadcast_to(
-        jnp.sum(ydy.astype(dtype), axis=-1), (n_b,))
-    env = jnp.stack([dmax2_b, ydy_sum_b])                     # (2, B)
-    g3 = _assemble_G3(None if n_ct == 0 else gtt.astype(dtype),
-                      gu_b.astype(dtype), n_ct)
-    bcols = _assemble_b_cols(None if n_ct == 0 else bt.astype(dtype),
-                             bu_b.astype(dtype), n_ct)
-    sel = jnp.tile(jnp.eye(n_b, dtype=dtype), (n_s, 1))       # (C, B)
-
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    in_specs = [full((2, n_b)),
-                full(g3.shape), full((p, C)), full((1, C)), full((1, C)),
-                full((1, C)), full((p, C)), full((p, C)), full((C, n_b))]
-    args = [env, g3, bcols,
-            _tile_members(l_h_b, n_s),
-            _tile_members(a_b.astype(dtype), n_s),
-            _tile_members(l_h_prev_b.astype(dtype), n_s),
-            _multi_layout(alpha_b, p), _multi_layout(alpha_prev_b, p),
-            sel]
-    if row_mask_b is not None:
-        mask_pc = jnp.broadcast_to(
-            jnp.transpose(row_mask_b.astype(dtype))[:, None, :],
-            (p, n_s, n_b)).reshape(p, C)
-        in_specs.append(full((p, C)))
-        args.append(mask_pc)
-
-        def kern(env_ref, g3_ref, b_ref, lh_ref, a0_ref, lp_ref, a_ref,
-                 ap_ref, sel_ref, mask_ref, a_out, ap_out, out):
-            _alpha_full_multi_kernel(env_ref, g3_ref, b_ref, lh_ref,
-                                     a0_ref, lp_ref, a_ref, ap_ref,
-                                     sel_ref, a_out, ap_out, out,
-                                     n_steps=n_steps, p=p, n_u=n_u,
-                                     row_mask_ref=mask_ref)
-    else:
-        kern = functools.partial(_alpha_full_multi_kernel,
-                                 n_steps=n_steps, p=p, n_u=n_u,
-                                 row_mask_ref=None)
-
-    a_new, ap_new, out = pl.pallas_call(
-        kern,
-        in_specs=in_specs,
-        out_specs=[full((p, C)), full((p, C)), full((2, n_b))],
-        out_shape=[jax.ShapeDtypeStruct((p, C), dtype)] * 2
-        + [jax.ShapeDtypeStruct((2, n_b), dtype)],
-        interpret=_interpret(),
-    )(*args)
-
-    # data-independent per-member scalar bookkeeping replayed outside
-    def scal_body(_, carry):
-        a, l_prev = carry
-        return ((1.0 + jnp.sqrt(1.0 + 4.0 * a * a)) / 2.0, l_h_b)
-
-    a_out, l_h_prev_out = jax.lax.fori_loop(
-        0, n_steps, scal_body, (a_b.astype(dtype), l_h_prev_b))
-    return (_multi_unlayout(a_new, n_b, n_s),
-            _multi_unlayout(ap_new, n_b, n_s),
-            a_out, l_h_prev_out, out[0], out[1])
-
-
-def _fw_full_multi_kernel(env_ref, g3_ref, b_ref, a_ref, pur_ref,
-                          sel_ref, a_out_ref, out_ref, *, n_steps, p, p1,
-                          n_u):
-    dmax2_b = env_ref[0:1]                           # (1, B)
-    ydy_sum_b = env_ref[1:2]
-    b = b_ref[:]
-    purity = pur_ref[:]                              # (1, C)
-    alpha = _fw_run(lambda a: -_grad_cols(g3_ref, b, a, p),
-                    a_ref[:], purity, p, p1, n_steps)
-    a_out_ref[:] = alpha
-
-    grad = _grad_cols(g3_ref, b, alpha, p)
-    colcost = -jnp.sum(b * alpha + alpha * grad, axis=0, keepdims=True)
-    a2blk = alpha[p - n_u:]
-    lw_col = jnp.sum(a2blk * a2blk, axis=0, keepdims=True)
-    per_member = _member_sums(jnp.concatenate([lw_col, colcost], axis=0),
-                              sel_ref)               # (2, B)
-    out_ref[:] = jnp.concatenate(
-        [per_member[0:1] * dmax2_b, per_member[1:2] + ydy_sum_b], axis=0)
-
-
-def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, dmax2,
-                        n_steps: int, n_u: int):
-    """Member-batched fw_phase_full: every restart member's whole
-    Frank-Wolfe loop in ONE launch. The FW schedule is 100s of latency-
-    bound steps (purity default n_iter2=500), so de-serializing the
-    member axis is worth ~Bx on the alpha half of the purity solver.
-
-    The loop invariants gtt/bt/ydy/dmax2 may be shared or per-member
-    (weighted bootstrap), as in alpha_phase_full_multi.
-    Returns (alpha_b, l_w_b, cost_b); alpha_b stacked [known; unknown].
-    """
-    n_b, p, n_s = alpha_b.shape
-    n_ct = p - n_u
-    C = n_s * n_b
-    dtype = alpha_b.dtype
-
-    dmax2_b = jnp.broadcast_to(jnp.asarray(dmax2, dtype), (n_b,))
-    ydy_sum_b = jnp.broadcast_to(
-        jnp.sum(ydy.astype(dtype), axis=-1), (n_b,))
-    env = jnp.stack([dmax2_b, ydy_sum_b])                     # (2, B)
-    g3 = _assemble_G3(None if n_ct == 0 else gtt.astype(dtype),
-                      gu_b.astype(dtype), n_ct)
-    bcols = _assemble_b_cols(None if n_ct == 0 else bt.astype(dtype),
-                             bu_b.astype(dtype), n_ct)
-    sel = jnp.tile(jnp.eye(n_b, dtype=dtype), (n_s, 1))
-    pur_row = jnp.broadcast_to(purity.astype(dtype)[:, None],
-                               (n_s, n_b)).reshape(1, C)
-
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    a_new, out = pl.pallas_call(
-        functools.partial(_fw_full_multi_kernel, n_steps=n_steps, p=p,
-                          p1=n_ct, n_u=n_u),
-        in_specs=[full((2, n_b)),
-                  full(g3.shape), full((p, C)), full((p, C)),
-                  full((1, C)), full((C, n_b))],
-        out_specs=[full((p, C)), full((2, n_b))],
-        out_shape=[jax.ShapeDtypeStruct((p, C), dtype),
-                   jax.ShapeDtypeStruct((2, n_b), dtype)],
-        interpret=_interpret(),
-    )(env, g3, bcols, _multi_layout(alpha_b, p), pur_row, sel)
-    return _multi_unlayout(a_new, n_b, n_s), out[0], out[1]
-
-
-def _fw_full_kernel(scal_ref, gtt_ref, bt_ref, gu_ref, bu_ref,
-                    ydy_ref, a_ref, pur_ref, a_out_ref, out_ref, *,
-                    n_steps, p, p1, n_s, n_ct, n_u):
-    dmax2 = scal_ref[0, 0]
-    G, b = _assemble_G_b(gtt_ref, bt_ref, gu_ref, bu_ref, n_ct)
-    purity = pur_ref[:]
-    alpha = _fw_run(lambda a: -_grad_from_grams(G, b, a, p, n_s),
-                    a_ref[:], purity, p, p1, n_steps)
-    a_out_ref[:] = alpha
-
-    grad = _grad_from_grams(G, b, alpha, p, n_s)
-    cost = _cost_from_grad(ydy_ref[:], b, alpha, grad)
-    a2blk = alpha[p - n_u:]
-    out_ref[:] = jnp.stack([jnp.sum(a2blk * a2blk) * dmax2,
-                            cost]).reshape(1, 2)
-
-
-def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, dmax2,
-                  n_steps: int, n_u: int):
-    """One launch: Gram assembly + whole Frank-Wolfe loop + l_w/cost.
-
-    Returns (alpha, l_w_new, cost); alpha stacked [known; unknown].
-    """
-    p, n_s = alpha.shape
-    n_ct = p - n_u
-    p1 = n_ct
-    dtype = alpha.dtype
-    scal = jnp.reshape(jnp.asarray(dmax2, dtype), (1, 1))
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, memory_space=pltpu.VMEM)
-    out_a, out = pl.pallas_call(
-        functools.partial(_fw_full_kernel, n_steps=n_steps, p=p, p1=p1,
-                          n_s=n_s, n_ct=n_ct, n_u=n_u),
-        in_specs=[pl.BlockSpec((1, 1), memory_space=pltpu.SMEM),
-                  full(gtt.shape), full(bt.shape), full(gu.shape),
-                  full(bu.shape), full((1, n_s)), full(alpha.shape),
-                  full((1, n_s))],
-        out_specs=[full(alpha.shape), full((1, 2))],
-        out_shape=[jax.ShapeDtypeStruct(alpha.shape, dtype),
-                   jax.ShapeDtypeStruct((1, 2), dtype)],
-        interpret=_interpret(),
-    )(scal, gtt.astype(dtype), bt.astype(dtype), gu.astype(dtype),
-      bu.astype(dtype), ydy.astype(dtype).reshape(1, n_s), alpha,
-      purity.astype(dtype).reshape(1, n_s))
-    return out_a, out[0, 0], out[0, 1]
+    p = alpha1.shape[0] + alpha2.shape[0]
+    return _on_platform(p, alpha1.dtype, kern, xla,
+                        alpha1, alpha2, G, b, purity)

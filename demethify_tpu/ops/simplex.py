@@ -4,20 +4,23 @@ Reference semantics: `projection_simplex_sort_2d` (Michelot/Condat sort-based
 projection), `demethify/deconvolution.py:20-37`. The reference loops over
 columns and scans for the *last* index j where ``u_j - (cumsum_j - z)/(j+1) > 0``;
 here the whole thing is a single vectorized sort + cumsum + masked-argmax over
-all columns at once, which XLA maps onto the VPU with no per-column control
-flow. p (= n_celltypes + n_unknown) is tiny, so the sort is cheap and the op
+all columns at once, with no per-column control flow. p (= n_celltypes + n_unknown) is tiny, so the sort is cheap and the op
 is safe to replicate across shards.
 """
 
 import jax.numpy as jnp
 
+from demethify_tpu.ops.gram import HIGHEST
+
 # Columns here are tiny (p = n_celltypes + n_unknown, ~6-30) but the op sits
-# inside latency-critical inner loops, and XLA's TPU `sort` lowering costs
-# ~1 ms per call regardless of size. So the descending sort is computed via
-# a stable rank matrix + permutation matmul, the cumsum via a triangular
-# matmul, and the threshold gather via a one-hot contraction — pure
-# VPU/MXU ops that fuse into one kernel. Tie order cannot affect the
-# result (only sorted VALUES enter the threshold), so this is exactly the
+# inside latency-critical inner loops, where a `sort` primitive is a
+# separate, comparatively slow op. So the descending sort is computed via
+# a stable rank matrix + permutation contraction, the cumsum via a
+# triangular matmul, and the threshold gather via a one-hot contraction —
+# elementwise ops and small dots that XLA fuses. The contractions carry
+# VALUES (a 0/1 matrix times v), so they are pinned to full f32: a TF32
+# dot would round the sorted values. Tie order cannot affect the result
+# (only sorted VALUES enter the threshold), so this is exactly the
 # reference's projection.
 _SORT_FALLBACK_P = 128
 
@@ -30,10 +33,11 @@ def _sorted_desc_small(v: jnp.ndarray) -> jnp.ndarray:
     lower = jnp.tril(jnp.ones((p, p), v.dtype), k=-1)
     # stable descending rank of element i within its column
     rank = (jnp.sum(gt, axis=0)
-            + jnp.einsum("ij,ijn->jn", lower, eq))           # (p, n)
+            + jnp.einsum("ij,ijn->jn", lower, eq,
+                         precision=HIGHEST))                 # (p, n)
     perm = (rank[None, :, :] ==
             jnp.arange(p, dtype=v.dtype)[:, None, None]).astype(v.dtype)
-    return jnp.einsum("kin,in->kn", perm, v)
+    return jnp.einsum("kin,in->kn", perm, v, precision=HIGHEST)
 
 
 def project_columns_to_simplex(v: jnp.ndarray, z: float = 1.0) -> jnp.ndarray:
@@ -49,7 +53,8 @@ def project_columns_to_simplex(v: jnp.ndarray, z: float = 1.0) -> jnp.ndarray:
     else:
         u = jnp.flip(jnp.sort(v, axis=0), axis=0)
     tri = jnp.tril(jnp.ones((p, p), v.dtype))
-    pi = tri @ u - jnp.asarray(z, v.dtype)                   # cumsum - z
+    pi = (jnp.matmul(tri, u, precision=HIGHEST)
+          - jnp.asarray(z, v.dtype))                         # cumsum - z
     j1 = jnp.arange(1, p + 1, dtype=v.dtype)[:, None]
     cond = (u - pi / j1) > 0
     idx = jnp.where(cond, jnp.arange(p)[:, None], -1)

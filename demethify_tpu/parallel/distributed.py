@@ -5,7 +5,7 @@ kind); this module is the TPU-native scale-out path. Design:
 
 - `initialize()` wraps `jax.distributed.initialize` (no-op when
   single-process) so N hosts each driving a TPU slice join one runtime;
-  collectives ride ICI within a slice and DCN across hosts.
+  collectives run between the devices of a host and across hosts.
 - Each host loads only ITS contiguous row-block of the CpG axis
   (`host_row_block`), parses it with the native fastbed parser, and
   assembles the global sharded array with
@@ -79,7 +79,7 @@ def shard_dataset_global(meth: np.ndarray, counts: np.ndarray,
     """CLI --multihost data path: the host-parsed arrays are split into
     per-process contiguous CpG row blocks and assembled into globally
     row-sharded jax.Arrays over a mesh spanning ALL processes' devices
-    (replicate=1; Gram reductions psum over ICI/DCN).
+    (replicate=1; Gram reductions are cross-device sums).
 
     Returns (mesh, y, d, ref_or_None). Rows are zero-padded to the
     global shard count (zero coverage = inert rows).

@@ -5,15 +5,15 @@ Design (SURVEY.md §2c): mesh axes ('replicate', 'cpg').
 - 'cpg' row-shards the long axis (n_cpg, millions of sites genome-wide) of
   Y, D, R_trunc, U — the framework's context-parallelism. All cross-CpG
   reductions (per-sample Grams, u-constant terms, costs, NNLS normal
-  equations) become XLA all-reduces (psum) over ICI; the U FISTA steps are
+  equations) become XLA all-reduces (psum); the U FISTA steps are
   fully local to a shard (zero communication).
 - 'replicate' data-parallels the embarrassingly parallel outer dimensions:
   random restarts, bootstrap replicates, BCV folds, IC-sweep members.
 - alpha, Grams, and all O(p^2) state are replicated.
 
 Everything rides `jax.jit` + `NamedSharding` constraint propagation — no
-hand-written collectives; XLA chooses all-gather/psum placement over
-ICI/DCN from the sharded operands.
+hand-written collectives; XLA chooses all-gather/psum placement from the
+sharded operands.
 """
 
 import math

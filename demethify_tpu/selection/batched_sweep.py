@@ -513,7 +513,9 @@ def batched_bcv_sweep(y, d, ref, *, n_u_max: int, n_folds: int, key,
 
     fold_iter = range(n_folds)
     if progress:
-        import tqdm
+        from demethify_tpu.utils import optional_import
+
+        tqdm = optional_import("tqdm", "the progress bar")
 
         fold_iter = tqdm.tqdm(fold_iter, desc="BCV folds", unit="fold")
     for fold in fold_iter:

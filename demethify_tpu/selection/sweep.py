@@ -110,7 +110,7 @@ def _evaluate_best_ic_multihost(y, d, ref, init_option, ic, key,
     cost more, striding balances), the tiny criterion vectors are
     allgathered, and EVERY process recomputes the winning rank's solve
     locally (deterministic keys make this bit-identical to a broadcast,
-    without moving the (n_cpg, n_u) factors over DCN). y/d/ref must be
+    without moving the (n_cpg, n_u) factors between hosts). y/d/ref must be
     process-local full arrays.
 
     AIC/BIC ranks solve through the masked compile-once machinery
@@ -247,7 +247,9 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
 
     iterator = n_u_values
     if progress:
-        import tqdm
+        from demethify_tpu.utils import optional_import
+
+        tqdm = optional_import("tqdm", "the progress bar")
         iterator = tqdm.tqdm(n_u_values)
 
     for n_u in iterator:

@@ -10,14 +10,17 @@ The reference script has two latent bugs fixed here: `unknown_portion` is a
 free variable inside `gen_param_u` (`gen_bedmethyl.py:20`) — it's an
 explicit argument now — and the missing `import pandas`. RNG is an explicit
 `numpy.random.Generator` (host-side data generation; no device involved).
+
+`write_cohort` is the seeded synthetic cohort with no input panel (random
+reference profiles, a hidden unknown component); it needs only NumPy, and
+the tests and `chip_smoke.py` build their fixtures with it.
 """
 
 import argparse
 import os
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
-import pandas as pd
 
 
 def _perturb_reference(R_full: np.ndarray, rng: np.random.Generator,
@@ -90,6 +93,8 @@ def generate_dataset(ref_bed: str, outdir: str, *,
     (`gen_bedmethyl.py:56-61`): explicit names (``select_cell_types``),
     the first ``nb_known`` columns (default), or ``random_known`` —
     a seeded draw of ``nb_known`` cell types without replacement."""
+    import pandas as pd
+
     rng = np.random.default_rng(seed)
     ref = pd.read_csv(ref_bed, sep="\t").dropna()
     if subsample:
@@ -144,6 +149,101 @@ def generate_dataset(ref_bed: str, outdir: str, *,
 
     return {"samples": sample_paths, "ref": ref_path,
             "proportions": os.path.join(outdir, "proportions_sim.csv")}
+
+
+class Cohort(NamedTuple):
+    """A simulated cohort: ``profiles`` (n_cpg, n_known + n_unknown) with
+    the known panel first, ``proportions`` (n_known + n_unknown, n_s),
+    ``coverage`` and ``methylated`` read counts (n_cpg, n_s)."""
+
+    profiles: np.ndarray
+    proportions: np.ndarray
+    coverage: np.ndarray
+    methylated: np.ndarray
+
+    @property
+    def fractions(self) -> np.ndarray:
+        """Observed methylation fractions, as the readers return them."""
+        return self.methylated / self.coverage
+
+
+def make_cohort(n_cpg: int, n_samples: int = 10, n_known: int = 5,
+                n_unknown: int = 1, depth: float = 50,
+                seed: int = 0) -> Cohort:
+    """Uniform(0, 1) cell-type profiles, Dirichlet(1) proportions per
+    sample over known and hidden unknown types, coverage Poisson(depth) + 1
+    and Binomial methylated counts of the mixed profile."""
+    rng = np.random.default_rng(seed)
+    p = n_known + n_unknown
+    profiles = rng.uniform(size=(n_cpg, p))
+    proportions = rng.dirichlet(np.ones(p), size=n_samples).T
+    coverage = rng.poisson(depth, size=(n_cpg, n_samples)) + 1
+    methylated = rng.binomial(coverage,
+                              np.clip(profiles @ proportions, 0.0, 1.0))
+    return Cohort(profiles, proportions, coverage, methylated)
+
+
+def _write_table(path: str, header: Sequence[str], columns) -> None:
+    """Tab-separated table; floats in %.10g, one f-string per row (an
+    order of magnitude faster than np.savetxt at 1M rows)."""
+    fmt = "\t".join("{:.10g}" if np.asarray(c).dtype.kind == "f" else "{}"
+                    for c in columns)
+    with open(path, "w") as f:
+        f.write("\t".join(header) + "\n")
+        f.writelines(fmt.format(*row) + "\n"
+                     for row in zip(*(np.asarray(c).tolist()
+                                      for c in columns)))
+
+
+def _site_columns(n_cpg: int):
+    return [np.full(n_cpg, "chr1"), np.arange(n_cpg), np.arange(1, n_cpg + 1)]
+
+
+def write_sample_bed(path: str, coverage: np.ndarray,
+                     methylated: np.ndarray) -> str:
+    """One sample as a modkit-style bedmethyl file."""
+    _write_table(path, ["chrom", "start", "end", "valid_coverage",
+                        "count_modified", "percent_modified"],
+                 _site_columns(coverage.shape[0])
+                 + [coverage, methylated, 100.0 * methylated / coverage])
+    return path
+
+
+def write_reference_bed(path: str, profiles: np.ndarray) -> str:
+    """Reference panel: chrom, start, end, one column per cell type."""
+    n_cpg, n_ct = profiles.shape
+    _write_table(path, ["chrom", "start", "end"]
+                 + [f"celltype_{k + 1}" for k in range(n_ct)],
+                 _site_columns(n_cpg) + [profiles[:, k] for k in range(n_ct)])
+    return path
+
+
+def write_cohort(outdir: str, cohort: Cohort, n_known: int,
+                 executor=None) -> dict:
+    """Write ``sample{i}.bed`` (modkit bedmethyl columns) per sample, the
+    known panel as ``ref_matrix.bed`` and the truth as ``truth.npz``.
+    Files are written through ``executor.submit`` when one is given
+    (a process pool writes them in parallel). Returns the paths
+    ({"samples", "ref", "truth"})."""
+    os.makedirs(outdir, exist_ok=True)
+    n_s = cohort.coverage.shape[1]
+    sample_paths = [os.path.join(outdir, f"sample{i + 1}.bed")
+                    for i in range(n_s)]
+    ref_path = os.path.join(outdir, "ref_matrix.bed")
+    jobs = [(write_sample_bed, path, cohort.coverage[:, i],
+             cohort.methylated[:, i]) for i, path in enumerate(sample_paths)]
+    jobs.append((write_reference_bed, ref_path,
+                 cohort.profiles[:, :n_known]))
+    if executor is None:
+        for fn, *args in jobs:
+            fn(*args)
+    else:
+        for future in [executor.submit(*job) for job in jobs]:
+            future.result()
+    truth_path = os.path.join(outdir, "truth.npz")
+    np.savez(truth_path, proportions=cohort.proportions,
+             profiles=cohort.profiles, n_known=n_known)
+    return {"samples": sample_paths, "ref": ref_path, "truth": truth_path}
 
 
 def main(argv=None):

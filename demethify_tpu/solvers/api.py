@@ -2,7 +2,7 @@
 
 Maps the reference's four solver paths (`demethify/demethify.py:148-217`)
 onto the jitted solvers. Random restarts run as ONE batched (vmapped) solve
-that saturates the chip, instead of the reference's serial Python loop
+on the device, instead of the reference's serial Python loop
 (`demethify.py:167-203`); the restart with the lowest weighted cost wins
 (first minimum, matching the reference's strict `<` update).
 
@@ -29,50 +29,8 @@ from demethify_tpu.solvers.init import (
 from demethify_tpu.solvers.partial_ref import partial_ref_solve
 from demethify_tpu.solvers.purity import purity_solve
 from demethify_tpu.solvers.unsupervised import unsupervised_solve
-from demethify_tpu.solvers import fused
 
 _DETERMINISTIC_INITS = ("SVD", "ICA")
-
-
-def _use_fused(y) -> bool:
-    """The Pallas megakernel path (solvers/fused.py) is the default on a
-    single TPU device: one HBM pass per outer iteration, ~2.6x the XLA
-    Gram-form solver at 1M sites. Vmapped restart batches and non-TPU
-    backends keep the XLA path (interpret mode is for tests, not
-    speed); multi-device row-sharded inputs take the shard_map form
-    (see _use_fused_sharded)."""
-    if jax.default_backend() != "tpu":
-        return False
-    sharding = getattr(y, "sharding", None)
-    if sharding is not None and len(sharding.device_set) > 1:
-        return False
-    return True
-
-
-def _use_fused_sharded(y) -> bool:
-    """Multi-device megakernel path: y row-sharded on a mesh 'cpg' axis
-    (CLI --shard / --multihost layout) with rows dividing the shard
-    count (the CLI zero-pads). Each device then runs the Pallas U-phase
-    on its local lane block inside shard_map (solvers/fused.py) instead
-    of falling back to the ~3.7x-slower XLA Gram path."""
-    if jax.default_backend() != "tpu":
-        return False
-    from jax.sharding import NamedSharding
-
-    from demethify_tpu.parallel.mesh import CPG_AXIS
-
-    sharding = getattr(y, "sharding", None)
-    if not isinstance(sharding, NamedSharding):
-        return False
-    if len(sharding.device_set) <= 1:
-        return False
-    mesh = sharding.mesh
-    if CPG_AXIS not in mesh.axis_names:
-        return False
-    spec = sharding.spec
-    if len(spec) < 1 or spec[0] != CPG_AXIS:
-        return False
-    return y.shape[0] % mesh.shape[CPG_AXIS] == 0
 
 
 def _is_deterministic(init, n_u, n_samples, init_provided):
@@ -109,25 +67,16 @@ def _select_best(u_b, alpha_b, info_b):
              "trace": info_b["trace"][best]})
 
 
-def _restarts(key, n_restarts, init_fn, solve_fn, deterministic_init,
-              solve_fn_single=None, solve_fn_batch=None):
-    """Run init+solve for n_restarts keys as one batched computation.
-
-    ``solve_fn_single`` (e.g. the fused Pallas solver) is used for the
-    unbatched path; restart batches use ``solve_fn_batch`` (the
-    multi-member megakernel — one Y/D read per outer iteration for ALL
-    members) when available, otherwise a vmap of ``solve_fn``.
-    """
+def _restarts(key, n_restarts, init_fn, solve_fn, deterministic_init):
+    """Run init+solve for n_restarts keys as one batched computation: a
+    vmap of ``solve_fn``, which follows its inputs' sharding (row-sharded
+    data keeps the Gram reductions as cross-device sums)."""
     if deterministic_init or n_restarts == 1:
         u0, a0 = init_fn(key)
-        u, alpha, info = (solve_fn_single or solve_fn)(u0, a0)
-        return u, alpha, info
+        return solve_fn(u0, a0)
     keys = jax.random.split(key, n_restarts)
     u0_b, a0_b = jax.vmap(init_fn)(keys)
-    if solve_fn_batch is not None:
-        u_b, alpha_b, info_b = solve_fn_batch(u0_b, a0_b)
-    else:
-        u_b, alpha_b, info_b = jax.vmap(solve_fn)(u0_b, a0_b)
+    u_b, alpha_b, info_b = jax.vmap(solve_fn)(u0_b, a0_b)
     return _select_best(u_b, alpha_b, info_b)
 
 
@@ -168,46 +117,8 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
                                  tol_relative=tol_relative,
                                  record_trace=record_trace)
 
-    solve_single = None
-    solve_batch = None
-    if _use_fused(y):
-        def solve_single(u0, a0):
-            return fused.partial_ref_solve_fused(
-                u0, a0, y, d, R_trunc, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], R_trunc.shape[1])):
-            # multi kernel: gram dataflow, member state fits VMEM
-            def solve_batch(u0_b, a0_b):
-                return fused.partial_ref_solve_fused_multi(
-                    u0_b, a0_b, y, d, R_trunc, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-    elif _use_fused_sharded(y):
-        def solve_single(u0, a0):
-            return fused.partial_ref_solve_fused_sharded(
-                u0, a0, y, d, R_trunc, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], R_trunc.shape[1])):
-            def solve_batch(u0_b, a0_b):
-                return fused.partial_ref_solve_fused_multi_sharded(
-                    u0_b, a0_b, y, d, R_trunc, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-
     det = _is_deterministic(init, n_u, y.shape[1], init_provided)
-    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det,
-                               solve_fn_single=solve_single,
-                               solve_fn_batch=solve_batch)
+    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det)
     return DeconvolutionResult(u=u, proportions=alpha,
                                cost=float(info["cost"]),
                                n_iter=int(info["n_iter"]),
@@ -240,45 +151,8 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
                             tol_relative=tol_relative,
                             record_trace=record_trace)
 
-    solve_single = None
-    solve_batch = None
-    if _use_fused(y):
-        def solve_single(u0, a0):
-            return fused.purity_solve_fused(
-                u0, a0, y, d, R_trunc, purity, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], R_trunc.shape[1])):
-            def solve_batch(u0_b, a0_b):
-                return fused.purity_solve_fused_multi(
-                    u0_b, a0_b, y, d, R_trunc, purity, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-    elif _use_fused_sharded(y):
-        def solve_single(u0, a0):
-            return fused.purity_solve_fused_sharded(
-                u0, a0, y, d, R_trunc, purity, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], R_trunc.shape[1])):
-            def solve_batch(u0_b, a0_b):
-                return fused.purity_solve_fused_multi_sharded(
-                    u0_b, a0_b, y, d, R_trunc, purity, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-
     det = _is_deterministic(init, n_u, y.shape[1], init_provided)
-    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det,
-                               solve_fn_single=solve_single,
-                               solve_fn_batch=solve_batch)
+    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det)
     return DeconvolutionResult(u=u, proportions=alpha,
                                cost=float(info["cost"]),
                                n_iter=int(info["n_iter"]),
@@ -312,45 +186,8 @@ def unsupervised_deconv(y, d, n_u: int, *,
                                   tol_relative=tol_relative,
                                   record_trace=record_trace)
 
-    solve_single = None
-    solve_batch = None
-    if _use_fused(y):
-        def solve_single(u0, a0):
-            return fused.unsupervised_solve_fused(
-                u0, a0, y, d, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], 0)):
-            def solve_batch(u0_b, a0_b):
-                return fused.unsupervised_solve_fused_multi(
-                    u0_b, a0_b, y, d, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-    elif _use_fused_sharded(y):
-        def solve_single(u0, a0):
-            return fused.unsupervised_solve_fused_sharded(
-                u0, a0, y, d, n_u,
-                n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                tol_relative=tol_relative, record_trace=record_trace)
-
-        if (n_u * n_u <= 3 * y.shape[1]
-                and n_restarts <= fused.max_multi_members(
-                    n_u, y.shape[1], 0)):
-            def solve_batch(u0_b, a0_b):
-                return fused.unsupervised_solve_fused_multi_sharded(
-                    u0_b, a0_b, y, d, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative,
-                    record_trace=record_trace)
-
     det = _is_deterministic(init, n_u, y.shape[1], init_provided)
-    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det,
-                               solve_fn_single=solve_single,
-                               solve_fn_batch=solve_batch)
+    u, alpha, info = _restarts(key, n_restarts, init_fn, solve_fn, det)
     return DeconvolutionResult(u=u, proportions=alpha,
                                cost=float(info["cost"]),
                                n_iter=int(info["n_iter"]),

@@ -18,7 +18,7 @@ Traffic: ~2 passes over the big arrays per outer iteration vs the
 reference's ~40 (n_iter2 x 2 blocks). Gradients are mathematically identical.
 
 Sharding: Y/D/R/U row-sharded on the 'cpg' mesh axis make steps 1-2 fully
-local; step 3's Grams are cross-shard reductions XLA lowers to psum over ICI.
+local; step 3's Grams are cross-shard reductions XLA lowers to psum.
 alpha and all O(p^2) state is replicated.
 """
 
@@ -31,11 +31,12 @@ from demethify_tpu.ops import fista
 from demethify_tpu.ops.cost import weighted_cost, weighted_cost_gram
 from demethify_tpu.ops.gram import (
     accum_dtype,
-    known_block_grams,
+    sample_grams,
     sample_grams_incremental,
     site_curvature,
     u_constant_term,
 )
+from demethify_tpu.ops.pallas_small import alpha_loop
 
 
 @partial(jax.jit, static_argnames=("n_u", "n_iter1", "n_iter2", "use_gram_u",
@@ -97,7 +98,7 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
     tol = tol * cf0 if tol_relative else tol
     # loop-invariant known-block Grams and ||Rt||^2 (ops/gram.py);
     # row_weights joins the contractions fused (no materialized w*D)
-    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y,
+    G_tt, b_t, ydy = sample_grams(R_trunc, d, y,
                                        row_weights=row_weights)
 
     trace0 = (jnp.full((n_iter1,), jnp.nan, dtype) if record_trace
@@ -127,7 +128,7 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
                                         row_weights=row_weights)
         l_h = (rt_sq + u_sq(u)) * dmax2
 
-        alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
+        alpha, alpha_prev, a2, l_h_prev = alpha_loop(
             alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2,
             row_mask=row_mask)
 

@@ -17,14 +17,14 @@ import jax.numpy as jnp
 
 from demethify_tpu.ops import fista
 from demethify_tpu.ops.cost import weighted_cost, weighted_cost_gram
-from demethify_tpu.ops.frank_wolfe import frank_wolfe_gram
 from demethify_tpu.ops.gram import (
     accum_dtype,
-    known_block_grams,
+    sample_grams,
     sample_grams_incremental,
     site_curvature,
     u_constant_term,
 )
+from demethify_tpu.ops.pallas_small import fw_loop
 
 
 @partial(jax.jit, static_argnames=("n_u", "n_iter1", "n_iter2", "use_gram_u",
@@ -56,7 +56,7 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
     l_w0 = jnp.sum(alpha[-n_u:] ** 2) * dmax2
     cf0 = weighted_cost(y, R0, alpha, d, row_weights=row_weights)
     tol = tol * cf0 if tol_relative else tol
-    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y,
+    G_tt, b_t, ydy = sample_grams(R_trunc, d, y,
                                        row_weights=row_weights)
 
     trace0 = (jnp.full((n_iter1,), jnp.nan, dtype) if record_trace
@@ -84,7 +84,7 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
         G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y,
                                         row_weights=row_weights)
 
-        alpha1, alpha2 = frank_wolfe_gram(
+        alpha1, alpha2 = fw_loop(
             alpha[:-n_u], alpha[-n_u:], G, b, purity, n_iter2)
         alpha = jnp.concatenate([alpha1, alpha2], axis=0)
 

@@ -14,10 +14,16 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from demethify_tpu.ops import fista
 from demethify_tpu.ops.fista import _run_steps
 from demethify_tpu.ops.cost import weighted_cost, weighted_cost_gram
-from demethify_tpu.ops.gram import accum_dtype, sample_grams, site_curvature
+from demethify_tpu.ops.gram import (
+    HIGHEST,
+    accum_dtype,
+    sample_grams,
+    site_curvature,
+    u_constant_term,
+)
+from demethify_tpu.ops.pallas_small import alpha_loop
 
 
 def _fista_u_lagged_gram(u, u_prev, a, l_prev, l_cur, C, M, n_steps):
@@ -30,7 +36,8 @@ def _fista_u_lagged_gram(u, u_prev, a, l_prev, l_cur, C, M, n_steps):
         a1 = (1.0 + jnp.sqrt(1.0 + 4.0 * a0 * a0)) / 2.0
         beta = jnp.minimum((a0 - 1.0) / a1, 0.9999 * jnp.sqrt(l_p / l_cur))
         u_t = u + beta * (u - u_prev)
-        grad = C - jnp.einsum("iuv,iv->iu", M, u)  # gradient at old u
+        # gradient at old u
+        grad = C - jnp.einsum("iuv,iv->iu", M, u, precision=HIGHEST)
         u_new = jnp.clip(u_t + grad / l_cur, 0.0, 1.0)
         return (u_new, u, a1, l_cur)
 
@@ -44,7 +51,9 @@ def _fista_u_lagged_direct(u, u_prev, a, l_prev, l_cur, y, d, alpha, n_steps):
         a1 = (1.0 + jnp.sqrt(1.0 + 4.0 * a0 * a0)) / 2.0
         beta = jnp.minimum((a0 - 1.0) / a1, 0.9999 * jnp.sqrt(l_p / l_cur))
         u_t = u + beta * (u - u_prev)
-        grad = (d * (y - u @ alpha)) @ alpha.T  # gradient at old u
+        # gradient at old u
+        resid = y - jnp.matmul(u, alpha, precision=HIGHEST)
+        grad = jnp.matmul(d * resid, alpha.T, precision=HIGHEST)
         u_new = jnp.clip(u_t + grad / l_cur, 0.0, 1.0)
         return (u_new, u, a1, l_cur)
 
@@ -102,7 +111,7 @@ def unsupervised_solve(u, alpha, y, d, n_u: int,
          l_w, l_w_prev, l_h_prev, cf, _, k, trace) = carry
 
         if use_gram_u:
-            C = (d * y) @ alpha.T
+            C = u_constant_term(y, d, None, None, alpha)
             M = site_curvature(d, alpha)
             u, u_prev, a1, l_w_prev = _fista_u_lagged_gram(
                 u, u_prev, a1, l_w_prev, l_w, C, M, n_iter2)
@@ -113,7 +122,7 @@ def unsupervised_solve(u, alpha, y, d, n_u: int,
         G, b, ydy = sample_grams(u, d, y, row_weights=row_weights)
         l_h = u_sq(u) * dmax2
 
-        alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
+        alpha, alpha_prev, a2, l_h_prev = alpha_loop(
             alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2,
             row_mask=row_mask)
 

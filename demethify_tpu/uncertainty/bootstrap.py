@@ -5,10 +5,10 @@ Reference: `bt_ci` (`demethify/bootstrap.py:10-93`): B row-resamples of
 percentile CIs over replicates for the proportions (and the unknown
 profiles in non-supervised modes).
 
-TPU-native restructuring: replicates are an embarrassingly parallel batch
-axis. Resampling is a per-replicate `jax.random.randint` gather; init +
-solve are vmapped; replicates run in device-sized chunks (`batch_size`) so
-B=2500 saturates the chip instead of looping serially (the reference's 55 s
+Restructuring: replicates are an embarrassingly parallel batch axis.
+Resampling is a per-replicate `jax.random.randint` gather; init + solve
+are vmapped; replicates run in device-sized chunks (`batch_size`) so
+B=2500 fills the device instead of looping serially (the reference's 55 s
 fixture path). Percentiles use NumPy's default linear interpolation, same
 as `np.percentile` in the reference.
 
@@ -81,8 +81,24 @@ def resolve_method(method: str, init_option: str, n_elems: int) -> str:
     return "weights" if n_elems >= 2_000_000 else "resample"
 
 
-def _auto_batch_size(n_cpg, n_s, n_ct, n_u, method, itemsize=4,
-                     budget_bytes=2 << 30):
+# Budget for one replicate batch where the device reports no memory
+# limit (CPU devices).
+_HOST_BATCH_BUDGET = 2 << 30
+# Share of a device's memory limit that one replicate batch may take: the
+# input arrays and the compiled solver's own temporaries need the rest.
+_DEVICE_BATCH_SHARE = 0.25
+
+
+def _batch_budget_bytes(device) -> int:
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return _HOST_BATCH_BUDGET
+    return int(limit * _DEVICE_BATCH_SHARE)
+
+
+def _auto_batch_size(n_cpg, n_s, n_ct, n_u, method, budget_bytes,
+                     itemsize=4):
     """Replicates per device dispatch, sized so the batch's per-replicate
     state fits the budget. Resample mode materializes gathered copies of
     (Y, D, R) plus solver carries; weights mode only the weight vector
@@ -118,7 +134,6 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
                  process_index: int = 0,
                  devices=None,
                  method: str = "auto",
-                 fused_multi=None,
                  progress: bool = False):
     """Returns (lower_props, upper_props, lower_u, upper_u); the u bounds
     are None in supervised mode (n_u == 0).
@@ -135,8 +150,8 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
     (genome-scale; u CIs per original row — see module docstring),
     "auto" picks weights once the data is large enough for duplication
     to hurt (and the init has a weighted form — SVD/ICA do not).
-    ``batch_size``: replicates per device dispatch; None sizes it to a
-    ~2 GiB per-batch state budget.
+    ``batch_size``: replicates per device dispatch; None sizes it to the
+    device's memory (see _auto_batch_size).
 
     Multi-host scale-out (``process_count > 1``): each process solves a
     contiguous block of the B replicates on ITS devices (y/d/ref must be
@@ -145,7 +160,7 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
     results are allgathered across processes before the percentile step.
     Replicate keys fold in the GLOBAL replicate index, so the CIs are
     bit-identical to a single-process run for any process count. The
-    unknown-profile gather moves (B, n_cpg, n_u) over DCN — fine for
+    unknown-profile gather moves (B, n_cpg, n_u) between hosts — fine for
     panel-scale references; genome-scale bootstrap CIs of U should stay
     single-host or accept the transfer.
 
@@ -219,7 +234,7 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
     if batch_size is None:
         batch_size = _auto_batch_size(
             n_cpg, y.shape[1], 0 if unsupervised else ref.shape[1],
-            n_u, method)
+            n_u, method, _batch_budget_bytes(jax.local_devices()[0]))
 
     def one_replicate(k):
         k_idx, k_init = jax.random.split(k)
@@ -300,121 +315,9 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
                                             row_weights=wvec)
         return alpha, u
 
-    sharding = getattr(y, "sharding", None)
-    row_sharded = False
-    if sharding is not None and hasattr(sharding, "spec"):
-        from demethify_tpu.parallel.mesh import CPG_AXIS
-
-        spec = sharding.spec
-        row_sharded = (len(sharding.device_set) > 1 and len(spec) >= 1
-                       and spec[0] == CPG_AXIS
-                       and y.shape[0] % sharding.mesh.shape[CPG_AXIS]
-                       == 0)
-
-    def _fused_gate():
-        # unsupervised replicates keep the XLA vmap path for now (the
-        # fused multi draw+init below is partial-ref/purity only)
-        if method != "weights" or supervised or unsupervised:
-            return False
-        if n_u * n_u > 3 * y.shape[1]:
-            return False
-        if fused_multi is not None:       # test override (interpret mode)
-            return bool(fused_multi)
-        return jax.default_backend() == "tpu"
-
-    def _draw_and_init(ks):
-        k_idx, k_init = jax.vmap(jax.random.split, out_axes=1)(ks)
-        idx_b = jax.vmap(lambda k: jax.random.randint(
-            k, (n_sample_rows,), 0, n_sample_rows))(k_idx)
-        w_b = jax.vmap(lambda i: jnp.zeros(
-            (n_cpg,), y.dtype).at[i].add(1.0))(idx_b)
-        if shared_init is not None:
-            u0, a0 = shared_init
-            n_b = ks.shape[0]
-            u0_b = jnp.broadcast_to(u0[None], (n_b,) + u0.shape)
-            a0_b = jnp.broadcast_to(a0[None], (n_b,) + a0.shape)
-        elif purity is not None:
-            u0_b, a0_b = jax.vmap(
-                lambda k, w: init_purity(k, init_option, y, d, ref,
-                                         n_u, purity,
-                                         row_weights=w))(k_init, w_b)
-        else:
-            u0_b, a0_b = jax.vmap(
-                lambda k, w: init_partial(k, init_option, y, d, ref,
-                                          n_u,
-                                          row_weights=w))(k_init, w_b)
-        return w_b, u0_b, a0_b
-
-    if _fused_gate() and not row_sharded and (
-            sharding is None or len(sharding.device_set) <= 1):
-        # weights mode on one TPU device rides the multi-member
-        # MEGAKERNEL: one (Y, D, R) read per outer iteration serves the
-        # whole replicate chunk (weights fold into the Gram
-        # accumulations; parity pinned in tests/test_weighted_bootstrap)
-        from demethify_tpu.solvers import fused
-
-        # the kernel holds every member's tile state in VMEM — cap the
-        # chunk so the launch fits even at the minimum lane tile
-        batch_size = min(batch_size, fused.max_multi_members(
-            n_u, y.shape[1], ref.shape[1], weighted=True))
-
-        @jax.jit
-        def batched(ks):
-            w_b, u0_b, a0_b = _draw_and_init(ks)
-            if purity is not None:
-                u_b, alpha_b, _ = fused.purity_solve_fused_multi(
-                    u0_b, a0_b, y, d, ref, purity, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative, row_weights_b=w_b)
-            else:
-                u_b, alpha_b, _ = fused.partial_ref_solve_fused_multi(
-                    u0_b, a0_b, y, d, ref, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative, row_weights_b=w_b)
-            return alpha_b, u_b
-    elif _fused_gate() and row_sharded:
-        # row-sharded data (CLI --shard): the sharded multi-member
-        # megakernel runs every replicate on its CpG row block with
-        # psum'd weighted Gram partials — zero duplication AND sharded
-        # memory footprint
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        from demethify_tpu.parallel.mesh import CPG_AXIS
-        from demethify_tpu.solvers import fused
-
-        batch_size = min(batch_size, fused.max_multi_members(
-            n_u, y.shape[1], ref.shape[1], weighted=True))
-        mesh = sharding.mesh
-        w_sh = NamedSharding(mesh, P(None, CPG_AXIS))
-        u_sh = NamedSharding(mesh, P(None, CPG_AXIS, None))
-        rep_sh = NamedSharding(mesh, P())
-
-        @jax.jit
-        def _prep(ks):
-            w_b, u0_b, a0_b = _draw_and_init(ks)
-            return (jax.lax.with_sharding_constraint(w_b, w_sh),
-                    jax.lax.with_sharding_constraint(u0_b, u_sh),
-                    jax.lax.with_sharding_constraint(a0_b, rep_sh))
-
-        def batched(ks):
-            w_b, u0_b, a0_b = _prep(ks)
-            if purity is not None:
-                u_b, alpha_b, _ = fused.purity_solve_fused_multi_sharded(
-                    u0_b, a0_b, y, d, ref, purity, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative, row_weights_b=w_b)
-            else:
-                (u_b, alpha_b,
-                 _) = fused.partial_ref_solve_fused_multi_sharded(
-                    u0_b, a0_b, y, d, ref, n_u,
-                    n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
-                    tol_relative=tol_relative, row_weights_b=w_b)
-            return alpha_b, u_b
-    else:
-        replicate_fn = (one_replicate_weighted if method == "weights"
-                        else one_replicate)
-        batched = jax.jit(jax.vmap(replicate_fn))
-
+    replicate_fn = (one_replicate_weighted if method == "weights"
+                    else one_replicate)
+    batched = jax.jit(jax.vmap(replicate_fn))
     key_sharding = None
     n_dev = 1
     if devices is not None and len(devices) > 1:
@@ -440,7 +343,9 @@ def bootstrap_ci(y, d, ref, n_u: int, *,
 
     pbar = None
     if progress:
-        import tqdm
+        from demethify_tpu.utils import optional_import
+
+        tqdm = optional_import("tqdm", "the progress bar")
 
         pbar = tqdm.tqdm(total=per_proc, desc="bootstrap replicates",
                          unit="rep")

@@ -1,7 +1,8 @@
 """Plain-NumPy oracle implementing the reference's update semantics
-(rewritten from the mathematical definitions in SURVEY.md; see
-`/root/reference/demethify/deconvolution.py` for the originals). Used only
-to check numerical parity of the JAX kernels."""
+(rewritten from the mathematical definitions in SURVEY.md; the originals
+are the reference's `demethify/deconvolution.py` and `init_func.py`). Used
+only to check numerical parity of the JAX solvers, here and on the chip
+(`chip_smoke.py`)."""
 
 import numpy as np
 
@@ -56,14 +57,20 @@ def fista_alpha(n_steps, alpha, a, l_prev, l_cur, alpha_prev, R, d, y):
     return alpha, alpha_prev, a2, l_prev
 
 
-def frank_wolfe(W1, W2, y, a1, a2, purity, max_iter, d):
-    # frank_wolfe_nmf semantics (deconvolution.py:279-302)
+def frank_wolfe(W1, W2, y, a1, a2, purity, max_iter, d, vertices=None):
+    # frank_wolfe_nmf semantics (deconvolution.py:279-302). A list given as
+    # ``vertices`` receives each step's known-block (argmin, margin) per
+    # column: margin = second-smallest minus smallest gradient entry.
     a1 = a1.copy()
     a2 = a2.copy()
     for k in range(max_iter):
         resid = d * (y - W1 @ a1 - W2 @ a2)
         g1 = -W1.T @ resid
         g2 = -W2.T @ resid
+        if vertices is not None:
+            g_sorted = np.sort(g1, axis=0)
+            vertices.append((np.argmin(g1, axis=0),
+                             g_sorted[1] - g_sorted[0]))
         s1 = np.zeros_like(a1)
         s2 = np.zeros_like(a2)
         for col in range(a1.shape[1]):
@@ -136,3 +143,50 @@ def unsupervised_solve(u, alpha, y, d, n_u, n_iter1, n_iter2, tol):
         if abs(cf - cf0) < tol:
             break
     return u, alpha
+
+
+def purity_solve(u, alpha, y, d, R_trunc, purity, n_u, n_iter1, n_iter2,
+                 tol, record_last_loop=False):
+    # mdwbssmf_deconv_p semantics (deconvolution.py:305-337): the FISTA
+    # u-update, then n_iter2 Frank-Wolfe steps on the purity-split alpha.
+    # With ``record_last_loop`` it also returns the last Frank-Wolfe loop's
+    # starting alpha and its vertices (see frank_wolfe).
+    last_loop = {}
+    a1 = 1.0
+    u_prev = u.copy()
+    dmax2 = d.max() ** 2
+    l_w = np.linalg.norm(alpha[-n_u:]) ** 2 * dmax2
+    l_w_prev = l_w
+    R = np.hstack([R_trunc, u])
+    cf = cost_w(y, R, alpha, d)
+    for _ in range(n_iter1):
+        cf0 = cf
+        u, u_prev, a1, l_w_prev = fista_u(
+            u, alpha, n_iter2, a1, l_w_prev, l_w, u_prev, y, R_trunc, n_u, d)
+        vertices = [] if record_last_loop else None
+        last_loop.update(alpha_in=alpha, vertices=vertices)
+        al1, al2 = frank_wolfe(R_trunc, u, y, alpha[:-n_u], alpha[-n_u:],
+                               purity, n_iter2, d, vertices)
+        alpha = np.vstack([al1, al2])
+        R = np.hstack([R_trunc, u])
+        l_w = np.linalg.norm(alpha[-n_u:]) ** 2 * dmax2
+        cf = cost_w(y, R, alpha, d)
+        if abs(cf - cf0) < tol:
+            break
+    if record_last_loop:
+        return u, alpha, last_loop
+    return u, alpha
+
+
+def wls_intercept(y, w, X):
+    # init_func.wls_intercept semantics (init_func.py:8-14): sklearn's
+    # LinearRegression(positive=True) with sample weights = weighted
+    # centering, sqrt(w) row scaling, scipy nnls; intercept dropped,
+    # coefficients normalized with a 1e-10 sum floor
+    from scipy.optimize import nnls
+
+    x_off = w @ X / w.sum()
+    y_off = w @ y / w.sum()
+    sw = np.sqrt(w)
+    coef, _ = nnls((X - x_off) * sw[:, None], (y - y_off) * sw)
+    return coef / max(coef.sum(), 1e-10)

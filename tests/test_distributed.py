@@ -1,10 +1,14 @@
 """Multi-host helpers: row-block ownership, global array assembly."""
 
+import os
+
 import numpy as np
 import jax
 
 from demethify_tpu.parallel.distributed import host_row_block, initialize
 from demethify_tpu.parallel.mesh import make_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_host_row_block_partitions_exactly():
@@ -34,21 +38,18 @@ class TestMultiProcessE2E:
     """REAL multi-process runs: two OS processes join one jax.distributed
     runtime over CPU (gloo collectives) and run the full CLI with
     globally row-sharded CpG arrays — the closest single-machine
-    approximation of a multi-host TPU pod run."""
+    approximation of a multi-host run."""
 
-    def _run_cli(self, extra, env):
-        import subprocess
+    def _run_cli(self, cohort, extra, env):
         import sys
-        F = "/root/reference/test/output_gen"
-        samples = [f"{F}/sample{i}.bed" for i in range(1, 11)]
         cmd = [sys.executable, "-m", "demethify_tpu",
-               "--methfreq", *samples, "--ref", f"{F}/ref_matrix.bed",
+               "--methfreq", *cohort.samples, "--ref", cohort.ref,
                "--bedmethyl", "--noprint", "--platform", "cpu",
                "--dtype", "float64", "--nbunknown", "1",
                "--iterations", "40", "5", "--seed", "3"] + extra
         return cmd
 
-    def test_two_process_purity_matches_single(self, tmp_path):
+    def test_two_process_purity_matches_single(self, cohort, tmp_path):
         import os
         import socket
         import subprocess
@@ -60,11 +61,11 @@ class TestMultiProcessE2E:
                  ["--iterations", "10", "20"]
 
         out1 = tmp_path / "single"
-        cmd = self._run_cli(["--outdir", str(out1)], env)
+        cmd = self._run_cli(cohort, ["--outdir", str(out1)], env)
         # replace the partial-ref iteration schedule with the purity one
         i = cmd.index("--iterations")
         cmd = cmd[:i] + purity + cmd[i + 3:]
-        subprocess.run(cmd, check=True, env=env, cwd="/root/repo",
+        subprocess.run(cmd, check=True, env=env, cwd=REPO,
                        timeout=300)
 
         with socket.socket() as s:
@@ -73,11 +74,11 @@ class TestMultiProcessE2E:
         out2 = tmp_path / "multi"
         procs = []
         for pid in (0, 1):
-            cmd = self._run_cli(["--outdir", str(out2), "--multihost",
+            cmd = self._run_cli(cohort, ["--outdir", str(out2), "--multihost",
                                  f"localhost:{port}", "2", str(pid)], env)
             i = cmd.index("--iterations")
             cmd = cmd[:i] + purity + cmd[i + 3:]
-            procs.append(subprocess.Popen(cmd, env=env, cwd="/root/repo"))
+            procs.append(subprocess.Popen(cmd, env=env, cwd=REPO))
         for pr in procs:
             assert pr.wait(timeout=300) == 0
 
@@ -86,7 +87,8 @@ class TestMultiProcessE2E:
         want = pd.read_csv(out1 / "celltypes_proportions.csv", index_col=0)
         np.testing.assert_allclose(got.values, want.values, atol=1e-8)
 
-    def _two_proc_vs_single(self, tmp_path, extra, drop_nbunknown=False):
+    def _two_proc_vs_single(self, cohort, tmp_path, extra,
+                            drop_nbunknown=False):
         import os
         import socket
         import subprocess
@@ -96,7 +98,7 @@ class TestMultiProcessE2E:
         env.pop("JAX_PLATFORMS", None)
 
         def build(args):
-            cmd = self._run_cli(args, env)
+            cmd = self._run_cli(cohort, args, env)
             if drop_nbunknown:
                 i = cmd.index("--nbunknown")
                 del cmd[i:i + 2]
@@ -104,7 +106,7 @@ class TestMultiProcessE2E:
 
         out1 = tmp_path / "single"
         subprocess.run(build(["--outdir", str(out1)] + extra),
-                       check=True, env=env, cwd="/root/repo",
+                       check=True, env=env, cwd=REPO,
                        timeout=600)
 
         with socket.socket() as s:
@@ -114,15 +116,15 @@ class TestMultiProcessE2E:
         procs = [subprocess.Popen(
             build(["--outdir", str(out2), "--multihost",
                    f"localhost:{port}", "2", str(pid)] + extra),
-            env=env, cwd="/root/repo") for pid in (0, 1)]
+            env=env, cwd=REPO) for pid in (0, 1)]
         for pr in procs:
             assert pr.wait(timeout=600) == 0
         return out1, out2
 
-    def test_two_process_bootstrap_matches_single(self, tmp_path):
+    def test_two_process_bootstrap_matches_single(self, cohort, tmp_path):
         import pandas as pd
         out1, out2 = self._two_proc_vs_single(
-            tmp_path, ["--confidence", "90", "7"])
+            cohort, tmp_path, ["--confidence", "90", "7"])
         # CI cells are "(lo, hi)" strings — exact match required: both
         # paths run the replicates on host-full arrays with keys folding
         # the GLOBAL replicate index
@@ -138,10 +140,10 @@ class TestMultiProcessE2E:
                            index_col=0)
         np.testing.assert_allclose(got.values, want.values, atol=1e-8)
 
-    def test_two_process_ic_sweep_matches_single(self, tmp_path):
+    def test_two_process_ic_sweep_matches_single(self, cohort, tmp_path):
         import pandas as pd
         out1, out2 = self._two_proc_vs_single(
-            tmp_path, ["--ic", "AIC", "--icmax", "3",
+            cohort, tmp_path, ["--ic", "AIC", "--icmax", "3",
                        "--init", "beta", "--iterations", "30", "5"],
             drop_nbunknown=True)
         got = pd.read_csv(out2 / "celltypes_proportions.csv", index_col=0)
@@ -150,7 +152,7 @@ class TestMultiProcessE2E:
         assert list(got.index) == list(want.index)  # same chosen rank
         np.testing.assert_allclose(got.values, want.values, atol=1e-8)
 
-    def test_two_process_cli_matches_single(self, tmp_path):
+    def test_two_process_cli_matches_single(self, cohort, tmp_path):
         import os
         import socket
         import subprocess
@@ -160,17 +162,17 @@ class TestMultiProcessE2E:
         env.pop("JAX_PLATFORMS", None)
 
         out1 = tmp_path / "single"
-        subprocess.run(self._run_cli(["--outdir", str(out1)], env),
-                       check=True, env=env, cwd="/root/repo", timeout=300)
+        subprocess.run(self._run_cli(cohort, ["--outdir", str(out1)], env),
+                       check=True, env=env, cwd=REPO, timeout=300)
 
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
         out2 = tmp_path / "multi"
         procs = [subprocess.Popen(
-            self._run_cli(["--outdir", str(out2), "--multihost",
+            self._run_cli(cohort, ["--outdir", str(out2), "--multihost",
                            f"localhost:{port}", "2", str(pid)], env),
-            env=env, cwd="/root/repo") for pid in (0, 1)]
+            env=env, cwd=REPO) for pid in (0, 1)]
         for pr in procs:
             assert pr.wait(timeout=300) == 0
 
@@ -183,7 +185,7 @@ class TestMultiProcessE2E:
         part0 = pd.read_csv(out2 / "methylation_profile_estimate.part0000.csv")
         part1 = pd.read_csv(out2 / "methylation_profile_estimate.part0001.csv")
         rows = np.concatenate([part0["row"].values, part1["row"].values])
-        assert sorted(rows.tolist()) == list(range(350))  # fixture rows
+        assert sorted(rows.tolist()) == list(range(cohort.n_sites))
         full = pd.read_csv(out1 / "methylation_profile_estimate.csv")
         stacked = np.concatenate([part0.iloc[:, 1:].values,
                                   part1.iloc[:, 1:].values])[np.argsort(rows)]
@@ -198,11 +200,12 @@ class TestTwoDimensionalScaleOut:
     the multi-device row-sharding itself is covered by
     tests/test_sharding.py."""
 
-    def test_two_process_2d_ic_sweep_matches_single(self, tmp_path):
+    def test_two_process_2d_ic_sweep_matches_single(self, cohort,
+                                                    tmp_path):
         import pandas as pd
         helper = TestMultiProcessE2E()
         out1, out2 = helper._two_proc_vs_single(
-            tmp_path, ["--ic", "AIC", "--icmax", "3",
+            cohort, tmp_path, ["--ic", "AIC", "--icmax", "3",
                        "--init", "beta", "--iterations", "30", "5",
                        "--shard"],
             drop_nbunknown=True)
@@ -212,12 +215,13 @@ class TestTwoDimensionalScaleOut:
         assert list(got.index) == list(want.index)  # same chosen rank
         np.testing.assert_allclose(got.values, want.values, atol=1e-8)
 
-    def test_two_process_2d_bootstrap_matches_single(self, tmp_path):
+    def test_two_process_2d_bootstrap_matches_single(self, cohort,
+                                                       tmp_path):
         import ast
         import pandas as pd
         helper = TestMultiProcessE2E()
         out1, out2 = helper._two_proc_vs_single(
-            tmp_path, ["--confidence", "90", "7",
+            cohort, tmp_path, ["--confidence", "90", "7",
                        "--cimethod", "weights", "--shard"])
 
         def bounds(path):

@@ -104,17 +104,13 @@ class TestTerminationResolution:
         assert termination_resolution_warning(
             1.2e9 * 1e-6, 1.2e9, np.float32) is None
 
-    def test_cli_warns(self, tmp_path, capsys):
-        import os
-        F = "/root/reference/test/output_gen"
-        if not os.path.exists(F):
-            pytest.skip("fixtures not mounted")
+    def test_cli_warns(self, cohort, tmp_path, capsys):
         from demethify_tpu.cli import main as cli_main
-        argv = ["--methfreq", f"{F}/sample1.bed", "--bedmethyl",
-                "--ref", f"{F}/ref_matrix.bed", "--nbunknown", "1",
+        argv = ["--methfreq", cohort.samples[0], "--bedmethyl",
+                "--ref", cohort.ref, "--nbunknown", "1",
                 "--outdir", str(tmp_path), "--noprint",
                 "--iterations", "5", "2",
-                "--termination", "1e-9"]  # far below f32 ulp of ~6e3
+                "--termination", "1e-9"]  # far below f32 ulp of ~4e2
         assert cli_main(argv) == 0
         out = capsys.readouterr().out
         assert "--reltol" in out

@@ -1,6 +1,5 @@
-"""Native fastbed parser vs pandas on real fixtures and edge cases."""
-
-import os
+"""Native fastbed parser vs pandas and vs its Python fallback, on the
+generated cohort and edge cases."""
 
 import numpy as np
 import pandas as pd
@@ -9,17 +8,13 @@ import pytest
 from demethify_tpu.io import fastbed
 from demethify_tpu.io.readers import load_dataset
 
-FIXDIR = "/root/reference/test/output_gen"
-
 pytestmark = pytest.mark.skipif(not fastbed.available(),
                                 reason="no native toolchain")
 
 
 class TestFastbed:
-    def test_matches_pandas_on_fixture(self):
-        path = os.path.join(FIXDIR, "sample1.bed")
-        if not os.path.exists(path):
-            pytest.skip("fixtures not mounted")
+    def test_matches_pandas_on_fixture(self, cohort):
+        path = cohort.samples[0]
         got = fastbed.parse_columns(
             path, ["percent_modified", "valid_coverage"], "\t")
         df = pd.read_csv(path, sep="\t")
@@ -55,17 +50,23 @@ class TestFastbed:
         with pytest.raises(KeyError):
             fastbed.parse_columns(str(p), ["zzz"], "\t")
 
-    def test_dataset_identical_with_and_without_native(self, monkeypatch):
-        if not os.path.exists(FIXDIR):
-            pytest.skip("fixtures not mounted")
-        samples = [os.path.join(FIXDIR, f"sample{i}.bed")
-                   for i in (1, 2)]
-        ref = os.path.join(FIXDIR, "ref_matrix.bed")
-        ds_native = load_dataset(samples, ref=ref, bedmethyl=True)
+    def test_dataset_identical_with_and_without_native(self, cohort,
+                                                       monkeypatch):
+        samples = cohort.samples[:2]
+        ds_native = load_dataset(samples, ref=cohort.ref, bedmethyl=True)
         monkeypatch.setattr(fastbed, "available", lambda: False)
-        ds_pandas = load_dataset(samples, ref=ref, bedmethyl=True)
-        np.testing.assert_allclose(ds_native.meth_f, ds_pandas.meth_f,
+        ds_python = load_dataset(samples, ref=cohort.ref, bedmethyl=True)
+        np.testing.assert_allclose(ds_native.meth_f, ds_python.meth_f,
                                    rtol=1e-12)
-        np.testing.assert_allclose(ds_native.counts, ds_pandas.counts)
-        np.testing.assert_allclose(ds_native.ref, ds_pandas.ref)
-        assert ds_native.header == ds_pandas.header
+        np.testing.assert_allclose(ds_native.counts, ds_python.counts)
+        np.testing.assert_allclose(ds_native.ref, ds_python.ref)
+        assert ds_native.header == ds_python.header
+
+    def test_python_fallback_na_handling(self, tmp_path, monkeypatch):
+        # the fallback keeps the native missing-value rules
+        p = tmp_path / "x.tsv"
+        p.write_text("a\tb\tc\n1\tNA\t3\n4\t\t6\nnan\t8\t.\n")
+        native = fastbed.parse_columns(str(p), ["a", "b", "c"], "\t")
+        monkeypatch.setattr(fastbed, "available", lambda: False)
+        python = fastbed.parse_columns(str(p), ["a", "b", "c"], "\t")
+        np.testing.assert_array_equal(python, native)

@@ -11,8 +11,10 @@ from demethify_tpu.io.readers import (
     read_csv_samples,
 )
 from demethify_tpu.io.writers import (
+    write_ci_profile,
     write_ci_proportions,
     write_log,
+    write_profile_estimate,
     write_proportions,
 )
 from demethify_tpu.utils import SolveStats, write_cost_trace
@@ -56,10 +58,9 @@ class TestWriters:
         props = np.array([[0.6, 0.3], [0.4, 0.7]])
         returned = write_proportions(str(tmp_path), props, ["A", "B"],
                                      ["s1.bed", "s2.bed"])
-        assert returned.index.name == "Cell types"
-        df = pd.read_csv(os.path.join(tmp_path,
-                                      "celltypes_proportions.csv"),
-                         index_col=0)
+        assert returned == os.path.join(tmp_path,
+                                        "celltypes_proportions.csv")
+        df = pd.read_csv(returned, index_col=0)
         assert df.index.name == "Cell types"
         assert list(df.columns) == ["s1.bed", "s2.bed"]
         np.testing.assert_allclose(df.values, props)
@@ -67,11 +68,9 @@ class TestWriters:
     def test_ci_tuple_cells(self, tmp_path):
         lo = np.array([[0.1, 0.2]])
         hi = np.array([[0.3, 0.4]])
-        df = write_ci_proportions(str(tmp_path), lo, hi, ["A"],
-                                  ["s1", "s2"])
-        back = pd.read_csv(os.path.join(
-            tmp_path, "confidence_interval_celltypes_proportions.csv"),
-            index_col=0)
+        path = write_ci_proportions(str(tmp_path), lo, hi, ["A"],
+                                    ["s1", "s2"])
+        back = pd.read_csv(path, index_col=0)
         assert back.index.name == "Cell Type"
         lo0, hi0 = eval(back.iloc[0, 0])
         assert (lo0, hi0) == (0.1, 0.3)
@@ -81,6 +80,83 @@ class TestWriters:
         text = open(path).read()
         assert text.startswith("Total execution time = 1.234 s")
         assert "Number of unknowns that minimises AIC : 7" in text
+
+
+# values whose text forms differ most between float printers: exponents,
+# negative zero, the shortest round-trip digits, denormals, NaN
+_AWKWARD = np.array([[0.1 + 0.2, 1e-05, 0.0001, 1.0, -0.0],
+                     [1e16, 123456789.123, 5e-324, np.nan, 1e22],
+                     [0.3333333333333333, 2.5e-10, 7.0, 1e-17, 0.5]])
+
+
+class TestWritersMatchPandas:
+    """The writers replaced pandas' to_csv; a run's files must be the
+    bytes the pandas writers produced."""
+
+    def _pandas_bytes(self, pd, tmp_path, write):
+        path = tmp_path / "pandas.csv"
+        write(pd, str(path))
+        return path.read_bytes()
+
+    def test_proportions(self, tmp_path):
+        pd_ = pytest.importorskip("pandas")
+
+        def legacy(pd, path):
+            df = pd.DataFrame(_AWKWARD)
+            df.index = ["A", "B,x", "unknown_cell_1"]
+            df.columns = ["s1.bed", "s 2.bed", "s3", "s4", "s5"]
+            df.index.name = "Cell types"
+            df.to_csv(path, index=True)
+
+        got = write_proportions(str(tmp_path), _AWKWARD,
+                                ["A", "B,x", "unknown_cell_1"],
+                                ["s1.bed", "s 2.bed", "s3", "s4", "s5"])
+        assert open(got, "rb").read() == self._pandas_bytes(
+            pd_, tmp_path, legacy)
+
+    @pytest.mark.parametrize("suffix", ["", ".part0001"])
+    def test_profile_estimate(self, tmp_path, suffix):
+        pd_ = pytest.importorskip("pandas")
+        u = _AWKWARD.T                       # (5 rows, 3 unknowns)
+        header = ["unknown_cell_1", "unknown_cell_2", "unknown_cell_3"]
+
+        def legacy(pd, path):
+            df = pd.DataFrame(u)
+            if suffix:
+                df.index = np.arange(40, 45)
+                df.to_csv(path, index=True, index_label="row",
+                          header=header)
+            else:
+                df.to_csv(path, index=False, header=header)
+
+        got = write_profile_estimate(str(tmp_path), u, header,
+                                     suffix=suffix, row_offset=40)
+        assert open(got, "rb").read() == self._pandas_bytes(
+            pd_, tmp_path, legacy)
+
+    def test_ci_files(self, tmp_path):
+        pd_ = pytest.importorskip("pandas")
+        lo = np.nan_to_num(_AWKWARD)
+        hi = lo + 0.125
+
+        def legacy(pd, path):
+            data = {name: [(float(lo[k, j]), float(hi[k, j]))
+                           for k in range(lo.shape[0])]
+                    for j, name in enumerate(["a", "b", "c", "d", "e"])}
+            df = pd.DataFrame(data, index=["x", "y", "z"])
+            df.index.name = "Cell Type"
+            df.to_csv(path, index=True)
+
+        got = write_ci_proportions(str(tmp_path), lo, hi, ["x", "y", "z"],
+                                   ["a", "b", "c", "d", "e"])
+        assert open(got, "rb").read() == self._pandas_bytes(
+            pd_, tmp_path, legacy)
+        # the profile CI file reads back as the same (lo, hi) cells
+        path = write_ci_profile(str(tmp_path), lo.T, hi.T, ["u1", "u2",
+                                                            "u3"])
+        back = pd_.read_csv(path)
+        assert list(back.columns) == ["u1", "u2", "u3"]
+        assert eval(back.iloc[3, 1]) == (float(lo[1, 3]), float(hi[1, 3]))
 
 
 class TestUtils:

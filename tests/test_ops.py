@@ -144,23 +144,49 @@ class TestFista:
 
 
 class TestFrankWolfe:
-    def test_gram_matches_oracle(self, small_problem):
-        p = small_problem
+    @staticmethod
+    def _problem(p):
         y, d, Rt, n_u = p["y"], p["d"], p["R_trunc"], p["n_u"]
         rng = np.random.default_rng(3)
         u = rng.uniform(size=(y.shape[0], n_u))
         purity = rng.uniform(0.3, 0.9, size=y.shape[1])
         a1 = rng.dirichlet(np.ones(Rt.shape[1]), size=y.shape[1]).T * purity
         a2 = rng.dirichlet(np.ones(n_u), size=y.shape[1]).T * (1 - purity)
+        G, b, _ = sample_grams(jnp.asarray(np.hstack([Rt, u])),
+                               jnp.asarray(d), jnp.asarray(y))
+        return y, d, Rt, u, purity, a1, a2, G, b
 
+    def test_gram_matches_oracle(self, small_problem):
+        y, d, Rt, u, purity, a1, a2, G, b = self._problem(small_problem)
         want1, want2 = oracle.frank_wolfe(Rt, u, y, a1, a2, purity, 30, d)
-
-        R = np.hstack([Rt, u])
-        G, b, _ = sample_grams(jnp.asarray(R), jnp.asarray(d), jnp.asarray(y))
         got1, got2 = fw.frank_wolfe_gram(jnp.asarray(a1), jnp.asarray(a2),
                                          G, b, jnp.asarray(purity), 30)
         np.testing.assert_allclose(np.asarray(got1), want1, atol=1e-9)
         np.testing.assert_allclose(np.asarray(got2), want2, atol=1e-9)
+
+    def test_recorded_vertices_rebuild_the_result(self, small_problem):
+        """The oracle's recorded vertices are the ones it stepped to: with
+        step 2/(k+2) the start drops out and step k's vertex carries weight
+        2(k+1)/(K(K+1)). chip_smoke's recording loop picks the same ones."""
+        import chip_smoke
+
+        y, d, Rt, u, purity, a1, a2, G, b = self._problem(small_problem)
+        K, (p1, n_s) = 30, a1.shape
+        vertices = []
+        want1, _ = oracle.frank_wolfe(Rt, u, y, a1, a2, purity, K, d,
+                                      vertices)
+        idx = np.stack([v for v, _ in vertices])
+        assert idx.shape == (K, n_s)
+        assert np.all(np.stack([m for _, m in vertices]) >= 0)
+        rebuilt = np.zeros_like(a1)
+        for k in range(K):
+            rebuilt[idx[k], np.arange(n_s)] += 2 * (k + 1) / (K * (K + 1))
+        np.testing.assert_allclose(rebuilt * purity, want1, atol=1e-12)
+
+        _, got = chip_smoke._fw_vertices(
+            jnp.asarray(np.vstack([a1, a2])), G, b, jnp.asarray(purity), K,
+            p1)
+        np.testing.assert_array_equal(np.asarray(got), idx)
 
 
 class TestNNLS:

@@ -1,259 +1,182 @@
-"""Single-launch alpha/FW kernels must reproduce the XLA loops exactly."""
+"""The Triton-route alpha FISTA / Frank-Wolfe kernels (run interpreted
+here) against the jnp loops, and the choice between the two."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from demethify_tpu.ops import fista
+from demethify_tpu.ops import pallas_small
+from demethify_tpu.ops.fista import fista_alpha_gram
 from demethify_tpu.ops.frank_wolfe import frank_wolfe_gram
 from demethify_tpu.ops.gram import sample_grams
-from demethify_tpu.ops.pallas_small import alpha_phase, fw_phase
+
+_TRITON_CALL = "__gpu$xla.gpu.triton"
 
 
-@pytest.fixture
-def grams_fixture(small_problem):
-    p = small_problem
-    R = np.hstack([p["R_trunc"], p["u_true"]])
-    G, b, ydy = sample_grams(jnp.asarray(R), jnp.asarray(p["d"]),
-                             jnp.asarray(p["y"]))
-    l_h = float(np.linalg.norm(R) ** 2 * p["d"].max() ** 2)
-    return p, G, b, l_h
+def _grams(n_cpg=150, n_s=7, p=6, seed=0):
+    rng = np.random.default_rng(seed)
+    R = rng.uniform(size=(n_cpg, p))
+    d = rng.poisson(50, size=(n_cpg, n_s)) + 1.0
+    y = np.clip(R @ rng.dirichlet(np.ones(p), size=n_s).T
+                + 0.01 * rng.normal(size=(n_cpg, n_s)), 0, 1)
+    G, b, _ = sample_grams(jnp.asarray(R), jnp.asarray(d), jnp.asarray(y))
+    l_h = jnp.asarray(np.linalg.norm(R) ** 2 * d.max() ** 2)
+    alpha = jnp.asarray(rng.dirichlet(np.ones(p), size=n_s).T)
+    return G, b, l_h, alpha, rng
 
 
-class TestAlphaPhaseKernel:
-    def test_matches_xla_loop(self, grams_fixture):
-        p, G, b, l_h = grams_fixture
-        alpha = jnp.asarray(p["alpha"])
-        want = fista.fista_alpha_gram(alpha, alpha, jnp.ones(()),
-                                      jnp.asarray(l_h), jnp.asarray(l_h),
-                                      G, b, 9)
-        got = alpha_phase(G, b, alpha, alpha, jnp.ones(()),
-                          jnp.asarray(l_h), jnp.asarray(l_h), 9)
+def _purity_start(alpha, p1, rng):
+    n_s = alpha.shape[1]
+    purity = jnp.asarray(rng.uniform(0.2, 0.8, size=n_s))
+    a1 = alpha[:p1] / jnp.sum(alpha[:p1], axis=0) * purity
+    a2 = alpha[p1:] / jnp.sum(alpha[p1:], axis=0) * (1.0 - purity)
+    return a1, a2, purity
+
+
+class TestAlphaKernel:
+    @pytest.mark.parametrize("p", [2, 6, 9, 29])
+    def test_trajectory_matches_jnp_loop(self, p):
+        # p = 2, 6 pad to 8 rows, 9 to 16, 29 to 32
+        G, b, l_h, alpha, rng = _grams(p=p)
+        alpha_prev = jnp.asarray(rng.dirichlet(np.ones(p), size=7).T)
+        a0 = jnp.asarray(1.7)
+        want = fista_alpha_gram(alpha, alpha_prev, a0, 0.8 * l_h, l_h, G,
+                                b, 20)
+        got = pallas_small.fista_alpha(alpha, alpha_prev, a0, 0.8 * l_h,
+                                       l_h, G, b, 20, interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       rtol=0, atol=1e-12)
+
+    def test_masked_rows(self):
+        G, b, l_h, alpha, _ = _grams()
+        mask = jnp.asarray(np.arange(6) < 4)
+        alpha = jnp.where(mask[:, None], alpha, 0.0)
+        alpha = alpha / jnp.sum(alpha, axis=0)
+        want = fista_alpha_gram(alpha, alpha, jnp.ones(()), l_h, l_h, G, b,
+                                12, row_mask=mask)
+        got = pallas_small.fista_alpha(alpha, alpha, jnp.ones(()), l_h, l_h,
+                                       G, b, 12, mask, interpret=True)
         np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
                                    atol=1e-12)
-        np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]),
-                                   atol=1e-12)
-        assert float(got[2]) == pytest.approx(float(want[2]))
-        assert float(got[3]) == pytest.approx(float(want[3]))
+        np.testing.assert_array_equal(np.asarray(got[0])[4:], 0.0)
 
-    def test_masked_matches_xla(self, grams_fixture):
-        p, G, b, l_h = grams_fixture
-        pp = G.shape[1]
-        mask = jnp.asarray(np.arange(pp) < pp - 1)
-        alpha_m = jnp.asarray(p["alpha"]).at[-1].set(0.0)
-        alpha_m = alpha_m / alpha_m.sum(axis=0, keepdims=True)
-        want = fista.fista_alpha_gram(alpha_m, alpha_m, jnp.ones(()),
-                                      jnp.asarray(l_h), jnp.asarray(l_h),
-                                      G, b, 6, row_mask=mask)
-        got = alpha_phase(G, b, alpha_m, alpha_m, jnp.ones(()),
-                          jnp.asarray(l_h), jnp.asarray(l_h), 6,
-                          row_mask=mask)
+    def test_vmapped_members(self):
+        # members (restarts / replicates) batch through vmap: each member
+        # must equal its own unbatched loop
+        G, b, l_h, alpha, rng = _grams()
+        alphas = jnp.stack([alpha] + [
+            jnp.asarray(rng.dirichlet(np.ones(6), size=7).T)
+            for _ in range(3)])
+        scale = jnp.asarray([1.0, 1.1, 1.5, 2.0])
+
+        def run(loop):
+            return jax.vmap(lambda a, s: loop(a, s)[0])(alphas, scale)
+
+        got = run(lambda a, s: pallas_small.fista_alpha(
+            a, a, jnp.ones(()), s * l_h, s * l_h, G, b, 10,
+            interpret=True))
+        want = run(lambda a, s: fista_alpha_gram(
+            a, a, jnp.ones(()), s * l_h, s * l_h, G, b, 10))
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-12)
+
+
+class TestFrankWolfeKernel:
+    @pytest.mark.parametrize("p, p1", [(6, 5), (9, 5), (29, 25)])
+    def test_matches_jnp_loop(self, p, p1):
+        G, b, _, alpha, rng = _grams(p=p, seed=3)
+        a1, a2, purity = _purity_start(alpha, p1, rng)
+        want = frank_wolfe_gram(a1, a2, G, b, purity, 40)
+        got = pallas_small.frank_wolfe(a1, a2, G, b, purity, 40,
+                                       interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       atol=1e-12)
+        # the purity constraint holds exactly per block
+        np.testing.assert_allclose(np.asarray(jnp.sum(got[0], axis=0)),
+                                   np.asarray(purity), atol=1e-12)
+
+    def test_vmapped_members(self):
+        G, b, _, alpha, rng = _grams(seed=4)
+        starts = [_purity_start(
+            jnp.asarray(rng.dirichlet(np.ones(6), size=7).T), 5, rng)
+            for _ in range(3)]
+        a1 = jnp.stack([s[0] for s in starts])
+        a2 = jnp.stack([s[1] for s in starts])
+        pur = jnp.stack([s[2] for s in starts])
+        got = jax.vmap(lambda x1, x2, q: pallas_small.frank_wolfe(
+            x1, x2, G, b, q, 25, interpret=True))(a1, a2, pur)
+        want = jax.vmap(lambda x1, x2, q: frank_wolfe_gram(
+            x1, x2, G, b, q, 25))(a1, a2, pur)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       atol=1e-12)
+
+
+class TestKernelChoice:
+    @pytest.mark.parametrize("platform, p, dtype, expected", [
+        ("cuda", 6, jnp.float32, True),
+        ("cuda", 32, jnp.float32, True),
+        ("cuda", 33, jnp.float32, False),      # pads past MAX_P
+        ("cuda", 6, jnp.float64, False),
+        ("cuda", 6, jnp.bfloat16, False),
+        ("cpu", 6, jnp.float32, False),
+        ("default", 6, jnp.float32, False),
+    ])
+    def test_use_kernel(self, platform, p, dtype, expected):
+        assert pallas_small.use_kernel(platform, p, dtype) is expected
+
+    @pytest.mark.parametrize("p, padded", [(1, 8), (6, 8), (8, 8), (9, 16),
+                                           (29, 32)])
+    def test_padded_p(self, p, padded):
+        assert pallas_small.padded_p(p) == padded
+
+    def test_interpret_is_never_defaulted(self):
+        G, b, l_h, alpha, _ = _grams()
+        with pytest.raises(TypeError):
+            pallas_small.fista_alpha(alpha, alpha, jnp.ones(()), l_h, l_h,
+                                     G, b, 3)
+        with pytest.raises(TypeError):
+            pallas_small.frank_wolfe(alpha[:5], alpha[5:], G, b,
+                                     jnp.full((7,), 0.5), 3)
+
+    def test_choice_does_not_read_the_backend(self, monkeypatch):
+        def refuse():
+            raise AssertionError("backend consulted")
+
+        monkeypatch.setattr(jax, "default_backend", refuse)
+        G, b, l_h, alpha, _ = _grams()
+        got = jax.jit(lambda a: pallas_small.alpha_loop(
+            a, a, jnp.ones(()), l_h, l_h, G, b, 5))(alpha)
+        want = fista_alpha_gram(alpha, alpha, jnp.ones(()), l_h, l_h, G, b,
+                                5)
         np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
                                    atol=1e-12)
 
+    @pytest.mark.parametrize("p, kernel", [(6, True), (29, True),
+                                           (40, False)])
+    def test_cuda_lowering_takes_kernel_by_shape(self, p, kernel):
+        # lowering for CUDA runs here without a card: the kernel's Triton
+        # call appears exactly when use_kernel says so, and never in the
+        # CPU lowering
+        G, b, l_h, alpha, _ = _grams(p=p)
+        f32 = [x.astype(jnp.float32) for x in (alpha, G, b, l_h)]
 
-class TestFWPhaseKernel:
-    def test_matches_xla_loop(self, grams_fixture):
-        p, G, b, _ = grams_fixture
-        n_u = p["n_u"]
-        n_s = p["y"].shape[1]
-        rng = np.random.default_rng(0)
-        purity = jnp.asarray(rng.uniform(0.2, 0.8, size=n_s))
-        a1 = jnp.asarray(rng.dirichlet(np.ones(p["R_trunc"].shape[1]),
-                                       size=n_s).T * np.asarray(purity))
-        a2 = jnp.asarray(rng.dirichlet(np.ones(n_u), size=n_s).T
-                         * (1 - np.asarray(purity)))
-        want1, want2 = frank_wolfe_gram(a1, a2, G, b, purity, 25)
-        got1, got2 = fw_phase(G, b, a1, a2, purity, 25)
-        np.testing.assert_allclose(np.asarray(got1), np.asarray(want1),
-                                   atol=1e-12)
-        np.testing.assert_allclose(np.asarray(got2), np.asarray(want2),
-                                   atol=1e-12)
+        def step(alpha, G, b, l_h):
+            a = pallas_small.alpha_loop(alpha, alpha, jnp.ones((), alpha.dtype),
+                                        l_h, l_h, G, b, 20)[0]
+            pur = jnp.full((alpha.shape[1],), 0.5, alpha.dtype)
+            f = pallas_small.fw_loop(alpha[:-1], alpha[-1:], G, b, pur, 30)
+            return a, f
 
-
-class TestMultiMemberKernels:
-    """Member-batched alpha/FW kernels must reproduce a vmap of the
-    single-member kernels (same G/b assembly, loop, and per-member
-    l_w/cost outputs)."""
-
-    def _multi_fixture(self, small_problem, n_b=4, seed=11):
-        import jax
-
-        p = small_problem
-        rng = np.random.default_rng(seed)
-        y, d, Rt = (jnp.asarray(p["y"]), jnp.asarray(p["d"]),
-                    jnp.asarray(p["R_trunc"]))
-        n_cpg, n_s = p["y"].shape
-        n_ct = Rt.shape[1]
-        n_u = p["n_u"]
-        pp = n_ct + n_u
-        from demethify_tpu.ops.gram import known_block_grams
-
-        gtt, bt, ydy = known_block_grams(Rt, d, y)
-        u_b = rng.uniform(size=(n_b, n_cpg, n_u))
-        # gu[b, s, u, q] = sum_i u[b,i,u] d[i,s] Rext[b,i,q]
-        gu, bu, usq = [], [], []
-        for b_i in range(n_b):
-            Rext = np.hstack([np.asarray(Rt), u_b[b_i]])
-            gu.append(np.einsum("iu,is,iq->suq", u_b[b_i],
-                                np.asarray(d), Rext))
-            bu.append(np.einsum("iu,is->us", u_b[b_i],
-                                np.asarray(d) * np.asarray(y)))
-            usq.append(float(np.sum(u_b[b_i] ** 2)))
-        gu_b = jnp.asarray(np.stack(gu))
-        bu_b = jnp.asarray(np.stack(bu))
-        usq_b = jnp.asarray(np.asarray(usq))
-        alpha_b = jnp.asarray(np.stack(
-            [rng.dirichlet(np.ones(pp), size=n_s).T for _ in range(n_b)]))
-        rt_sq = float(np.sum(np.asarray(Rt) ** 2))
-        dmax2 = float(np.max(np.asarray(d)) ** 2)
-        return dict(gtt=gtt, bt=bt, ydy=ydy, gu_b=gu_b, bu_b=bu_b,
-                    usq_b=usq_b, alpha_b=alpha_b, rt_sq=rt_sq,
-                    dmax2=dmax2, n_u=n_u, n_b=n_b, n_ct=n_ct,
-                    rng=rng, jax=jax)
-
-    def test_alpha_multi_matches_vmapped_single(self, small_problem):
-        from demethify_tpu.ops.pallas_small import (
-            alpha_phase_full,
-            alpha_phase_full_multi,
-        )
-
-        f = self._multi_fixture(small_problem)
-        jax = f["jax"]
-        n_b = f["n_b"]
-        a_b = jnp.asarray(f["rng"].uniform(1.0, 3.0, size=n_b))
-        lhp_b = jnp.asarray(f["rng"].uniform(50.0, 200.0, size=n_b))
-
-        def single(gu, bu, usq, alpha, a, lhp):
-            return alpha_phase_full(f["gtt"], f["bt"], gu, bu, usq,
-                                    f["ydy"], alpha, alpha, a, lhp,
-                                    f["rt_sq"], f["dmax2"], 7, f["n_u"])
-
-        want = jax.vmap(single)(f["gu_b"], f["bu_b"], f["usq_b"],
-                                f["alpha_b"], a_b, lhp_b)
-        got = alpha_phase_full_multi(
-            f["gtt"], f["bt"], f["gu_b"], f["bu_b"], f["usq_b"],
-            f["ydy"], f["alpha_b"], f["alpha_b"], a_b, lhp_b,
-            f["rt_sq"], f["dmax2"], 7, f["n_u"])
-        for i in range(6):
-            np.testing.assert_allclose(np.asarray(got[i]),
-                                       np.asarray(want[i]), rtol=1e-9,
-                                       atol=1e-10)
-
-    def test_alpha_multi_row_masks(self, small_problem):
-        # per-member masks: member i activates n_ct + (i % n_u + 1) rows
-        from demethify_tpu.ops.pallas_small import (
-            alpha_phase_full,
-            alpha_phase_full_multi,
-        )
-
-        f = self._multi_fixture(small_problem, n_b=3, seed=12)
-        jax = f["jax"]
-        n_b, n_ct, n_u = f["n_b"], f["n_ct"], f["n_u"]
-        pp = n_ct + n_u
-        masks = np.ones((n_b, pp), bool)
-        for i in range(n_b):
-            masks[i, n_ct + 1 + (i % n_u):] = False
-        masks_b = jnp.asarray(masks)
-        alpha_b = f["alpha_b"] * masks_b[:, :, None]
-        alpha_b = alpha_b / jnp.sum(alpha_b, axis=1, keepdims=True)
-        a_b = jnp.ones((n_b,))
-        lhp_b = jnp.full((n_b,), 100.0)
-
-        def single(gu, bu, usq, alpha, mask):
-            return alpha_phase_full(f["gtt"], f["bt"], gu, bu, usq,
-                                    f["ydy"], alpha, alpha,
-                                    jnp.ones(()), jnp.asarray(100.0),
-                                    f["rt_sq"], f["dmax2"], 5, f["n_u"],
-                                    row_mask=mask)
-
-        want = jax.vmap(single)(f["gu_b"], f["bu_b"], f["usq_b"],
-                                alpha_b, masks_b)
-        got = alpha_phase_full_multi(
-            f["gtt"], f["bt"], f["gu_b"], f["bu_b"], f["usq_b"],
-            f["ydy"], alpha_b, alpha_b, a_b, lhp_b,
-            f["rt_sq"], f["dmax2"], 5, f["n_u"], row_mask_b=masks_b)
-        np.testing.assert_allclose(np.asarray(got[0]),
-                                   np.asarray(want[0]), atol=1e-10)
-        # masked rows stay exactly zero
-        for i in range(n_b):
-            np.testing.assert_array_equal(
-                np.asarray(got[0][i])[~masks[i]], 0.0)
-
-    def test_fw_multi_matches_vmapped_single(self, small_problem):
-        from demethify_tpu.ops.pallas_small import (
-            fw_phase_full,
-            fw_phase_full_multi,
-        )
-
-        f = self._multi_fixture(small_problem, seed=13)
-        jax = f["jax"]
-        n_s = f["bt"].shape[1]
-        purity = jnp.asarray(f["rng"].uniform(0.2, 0.8, size=n_s))
-        # purity-feasible starting alpha per member
-        a1 = f["alpha_b"][:, :f["n_ct"]]
-        a1 = a1 / jnp.sum(a1, axis=1, keepdims=True) * purity[None, None]
-        a2 = f["alpha_b"][:, f["n_ct"]:]
-        a2 = (a2 / jnp.sum(a2, axis=1, keepdims=True)
-              * (1.0 - purity)[None, None])
-        alpha_b = jnp.concatenate([a1, a2], axis=1)
-
-        def single(gu, bu, alpha):
-            return fw_phase_full(f["gtt"], f["bt"], gu, bu, f["ydy"],
-                                 alpha, purity, f["dmax2"], 30, f["n_u"])
-
-        want = jax.vmap(single)(f["gu_b"], f["bu_b"], alpha_b)
-        got = fw_phase_full_multi(f["gtt"], f["bt"], f["gu_b"],
-                                  f["bu_b"], f["ydy"], alpha_b, purity,
-                                  f["dmax2"], 30, f["n_u"])
-        for i in range(3):
-            np.testing.assert_allclose(np.asarray(got[i]),
-                                       np.asarray(want[i]), rtol=1e-9,
-                                       atol=1e-10)
-
-    def test_alpha_multi_unsupervised(self, small_problem):
-        # n_ct = 0: G/b assembled purely from the member blocks
-        from demethify_tpu.ops.pallas_small import (
-            alpha_phase_full,
-            alpha_phase_full_multi,
-        )
-
-        p = small_problem
-        import jax
-
-        rng = np.random.default_rng(14)
-        y, d = jnp.asarray(p["y"]), jnp.asarray(p["d"])
-        n_cpg, n_s = p["y"].shape
-        n_u, n_b = 3, 4
-        u_b = rng.uniform(size=(n_b, n_cpg, n_u))
-        gu, bu, usq = [], [], []
-        for b_i in range(n_b):
-            gu.append(np.einsum("iu,is,iq->suq", u_b[b_i],
-                                np.asarray(d), u_b[b_i]))
-            bu.append(np.einsum("iu,is->us", u_b[b_i],
-                                np.asarray(d) * np.asarray(y)))
-            usq.append(float(np.sum(u_b[b_i] ** 2)))
-        gu_b, bu_b = jnp.asarray(np.stack(gu)), jnp.asarray(np.stack(bu))
-        usq_b = jnp.asarray(np.asarray(usq))
-        ydy = jnp.sum(d * y * y, axis=0)
-        alpha_b = jnp.asarray(np.stack(
-            [rng.dirichlet(np.ones(n_u), size=n_s).T
-             for _ in range(n_b)]))
-        dmax2 = float(np.max(np.asarray(d)) ** 2)
-        a_b = jnp.ones((n_b,))
-        lhp_b = jnp.full((n_b,), 77.0)
-
-        def single(gu, bu, usq, alpha):
-            return alpha_phase_full(None, None, gu, bu, usq, ydy,
-                                    alpha, alpha, jnp.ones(()),
-                                    jnp.asarray(77.0), 0.0, dmax2, 6,
-                                    n_u)
-
-        want = jax.vmap(single)(gu_b, bu_b, usq_b, alpha_b)
-        got = alpha_phase_full_multi(None, None, gu_b, bu_b, usq_b, ydy,
-                                     alpha_b, alpha_b, a_b, lhp_b,
-                                     0.0, dmax2, 6, n_u)
-        for i in range(6):
-            np.testing.assert_allclose(np.asarray(got[i]),
-                                       np.asarray(want[i]), rtol=1e-9,
-                                       atol=1e-10)
+        exported = jax.export.export(
+            jax.jit(step), platforms=["cuda"],
+            disabled_checks=[
+                jax.export.DisabledSafetyCheck.custom_call(_TRITON_CALL)],
+        )(*f32)
+        n_calls = exported.mlir_module().count("xla.gpu.triton")
+        assert n_calls == (2 if kernel else 0)
+        cpu_text = jax.jit(step).lower(*f32).as_text()
+        assert "triton" not in cpu_text

@@ -3,6 +3,7 @@ must agree with single-device solves and actually distribute the data."""
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -17,7 +18,6 @@ from demethify_tpu.parallel.mesh import (
 )
 from demethify_tpu.ops.gram import sample_grams
 from demethify_tpu.ops.nnls import wls_intercept_batch
-from demethify_tpu.solvers import fused
 from demethify_tpu.solvers.partial_ref import partial_ref_solve
 from demethify_tpu.solvers.purity import purity_solve
 from demethify_tpu.solvers.unsupervised import unsupervised_solve
@@ -163,72 +163,6 @@ def test_bootstrap_replicate_sharded_matches_local():
                                atol=1e-12)
 
 
-class TestFusedSharded:
-    """The shard_map megakernel solvers must reproduce the XLA solver
-    trajectories on the 8-device CPU mesh (Pallas interpret mode)."""
-
-    def test_partial_ref_trajectory(self):
-        mesh = make_mesh(jax.devices())
-        y, d, Rt, u0, a0 = _problem()
-        n_u = u0.shape[1]
-        u_ref, a_ref, info_ref = partial_ref_solve(
-            jnp.asarray(u0), jnp.asarray(a0), jnp.asarray(y),
-            jnp.asarray(d), jnp.asarray(Rt), n_u,
-            n_iter1=15, n_iter2=5, tol=1e-9, record_trace=True)
-        y_s, d_s, Rt_s, u0_s, a0_s = _shard_inputs(mesh, y, d, Rt, u0, a0)
-        u_sh, a_sh, info_sh = fused.partial_ref_solve_fused_sharded(
-            u0_s, a0_s, y_s, d_s, Rt_s, n_u,
-            n_iter1=15, n_iter2=5, tol=1e-9, record_trace=True)
-        np.testing.assert_allclose(np.asarray(u_sh), np.asarray(u_ref),
-                                   atol=1e-8)
-        np.testing.assert_allclose(np.asarray(a_sh), np.asarray(a_ref),
-                                   atol=1e-8)
-        # full cost trajectory, not just the endpoint
-        np.testing.assert_allclose(np.asarray(info_sh["trace"]),
-                                   np.asarray(info_ref["trace"]),
-                                   rtol=1e-8)
-        assert len(u_sh.sharding.device_set) > 1
-
-    def test_unsupervised_trajectory(self):
-        mesh = make_mesh(jax.devices())
-        y, d, _, u0, a0 = _problem(n_ct=0, n_u=4)
-        n_u = 4
-        u_ref, a_ref, info_ref = unsupervised_solve(
-            jnp.asarray(u0), jnp.asarray(a0), jnp.asarray(y),
-            jnp.asarray(d), n_u, n_iter1=12, n_iter2=5, tol=1e-9,
-            record_trace=True)
-        y_s, d_s, _, u0_s, a0_s = _shard_inputs(mesh, y, d, None, u0, a0)
-        u_sh, a_sh, info_sh = fused.unsupervised_solve_fused_sharded(
-            u0_s, a0_s, y_s, d_s, n_u,
-            n_iter1=12, n_iter2=5, tol=1e-9, record_trace=True)
-        np.testing.assert_allclose(np.asarray(u_sh), np.asarray(u_ref),
-                                   atol=1e-8)
-        np.testing.assert_allclose(np.asarray(info_sh["trace"]),
-                                   np.asarray(info_ref["trace"]),
-                                   rtol=1e-8)
-
-    def test_purity_trajectory(self):
-        mesh = make_mesh(jax.devices())
-        y, d, Rt, u0, a0 = _problem()
-        n_u = u0.shape[1]
-        purity = np.full(y.shape[1], 0.35)
-        u_ref, a_ref, info_ref = purity_solve(
-            jnp.asarray(u0), jnp.asarray(a0), jnp.asarray(y),
-            jnp.asarray(d), jnp.asarray(Rt), jnp.asarray(purity), n_u,
-            n_iter1=8, n_iter2=12, tol=1e-9, record_trace=True)
-        y_s, d_s, Rt_s, u0_s, a0_s = _shard_inputs(mesh, y, d, Rt, u0, a0)
-        u_sh, a_sh, info_sh = fused.purity_solve_fused_sharded(
-            u0_s, a0_s, y_s, d_s, Rt_s, jnp.asarray(purity), n_u,
-            n_iter1=8, n_iter2=12, tol=1e-9, record_trace=True)
-        np.testing.assert_allclose(np.asarray(u_sh), np.asarray(u_ref),
-                                   atol=1e-8)
-        np.testing.assert_allclose(np.asarray(a_sh), np.asarray(a_ref),
-                                   atol=1e-8)
-        np.testing.assert_allclose(np.asarray(info_sh["trace"]),
-                                   np.asarray(info_ref["trace"]),
-                                   rtol=1e-8)
-
-
 def test_dryrun_entrypoints():
     import __graft_entry__ as ge
 
@@ -238,39 +172,57 @@ def test_dryrun_entrypoints():
     ge.dryrun_multichip(len(jax.devices()))
 
 
-class TestFusedMultiSharded:
-    """The sharded multi-restart megakernel solvers must reproduce the
-    single-device multi solvers (hence the vmapped XLA solvers) on the
-    8-device CPU mesh (interpret mode)."""
+def _solver(mode, y, d, Rt, n_u, **kw):
+    """One mode's XLA solver as f(u0, a0) -> (u, alpha, info)."""
+    if mode == "partial":
+        return lambda u0, a0: partial_ref_solve(u0, a0, y, d, Rt, n_u, **kw)
+    if mode == "purity":
+        purity = jnp.full((y.shape[1],), 0.35, y.dtype)
+        return lambda u0, a0: purity_solve(u0, a0, y, d, Rt, purity, n_u,
+                                           **kw)
+    return lambda u0, a0: unsupervised_solve(u0, a0, y, d, n_u, **kw)
 
-    def _batch(self, n_b, n_cpg, n_u, p_full, n_s, seed=21):
-        rng = np.random.default_rng(seed)
-        u0_b = rng.uniform(size=(n_b, n_cpg, n_u))
+
+_MODES = {"partial": dict(n_ct=3, n_u=1, n_iter2=5),
+          "purity": dict(n_ct=3, n_u=1, n_iter2=10),
+          "unsupervised": dict(n_ct=0, n_u=2, n_iter2=5)}
+
+
+class TestShardedRestarts:
+    """Restarts are a vmap of the one XLA solver per mode; on row-sharded
+    inputs the vmapped solve must reproduce the single-device batch, with
+    the factors left distributed."""
+
+    @pytest.mark.parametrize("mode", sorted(_MODES))
+    def test_vmapped_restarts_match_local(self, mode):
+        cfg = _MODES[mode]
+        n_u = cfg["n_u"]
+        y, d, Rt, _, _ = _problem(n_ct=max(cfg["n_ct"], 1), n_u=n_u)
+        if cfg["n_ct"] == 0:
+            Rt = None
+        n_cpg, n_s = y.shape
+        p_full = cfg["n_ct"] + n_u
+        rng = np.random.default_rng(21)
+        u0_b = rng.uniform(size=(3, n_cpg, n_u))
         a0_b = np.stack([rng.dirichlet(np.ones(p_full), size=n_s).T
-                         for _ in range(n_b)])
-        return u0_b, a0_b
+                         for _ in range(3)])
+        if mode == "purity":
+            a0_b[:, :-n_u] *= 0.65 / a0_b[:, :-n_u].sum(axis=1,
+                                                        keepdims=True)
+            a0_b[:, -n_u:] = 0.35
+        kw = dict(n_iter1=8, n_iter2=cfg["n_iter2"], tol=1e-9,
+                  record_trace=True)
+        local = [None if x is None else jnp.asarray(x) for x in (y, d, Rt)]
+        want = jax.vmap(_solver(mode, *local, n_u, **kw))(
+            jnp.asarray(u0_b), jnp.asarray(a0_b))
 
-    def _shard_batch(self, mesh, u0_b, a0_b):
+        mesh = make_mesh(jax.devices())
+        y_s, d_s, Rt_s = shard_dataset(mesh, y, d, Rt)
         u0_s = jax.device_put(u0_b, NamedSharding(
             mesh, P(None, CPG_AXIS, None)))
         a0_s = jax.device_put(a0_b, NamedSharding(mesh, P()))
-        return u0_s, a0_s
-
-    def test_partial_ref_multi_trajectory(self):
-        mesh = make_mesh(jax.devices())
-        y, d, Rt, u0, _ = _problem()
-        n_u = u0.shape[1]
-        n_cpg, n_s = y.shape
-        u0_b, a0_b = self._batch(3, n_cpg, n_u, Rt.shape[1] + n_u, n_s)
-        want = jax.vmap(lambda u0_, a0_: partial_ref_solve(
-            u0_, a0_, jnp.asarray(y), jnp.asarray(d), jnp.asarray(Rt),
-            n_u, n_iter1=10, n_iter2=5, tol=1e-9,
-            record_trace=True))(jnp.asarray(u0_b), jnp.asarray(a0_b))
-        y_s, d_s, Rt_s = shard_dataset(mesh, y, d, Rt)
-        u0_s, a0_s = self._shard_batch(mesh, u0_b, a0_b)
-        got = fused.partial_ref_solve_fused_multi_sharded(
-            u0_s, a0_s, y_s, d_s, Rt_s, n_u,
-            n_iter1=10, n_iter2=5, tol=1e-9, record_trace=True)
+        got = jax.vmap(_solver(mode, y_s, d_s, Rt_s, n_u, **kw))(u0_s,
+                                                                 a0_s)
         np.testing.assert_allclose(np.asarray(got[0]),
                                    np.asarray(want[0]), atol=1e-8)
         np.testing.assert_allclose(np.asarray(got[1]),
@@ -280,61 +232,23 @@ class TestFusedMultiSharded:
                                    rtol=1e-8)
         assert len(got[0].sharding.device_set) > 1
 
-    def test_unsupervised_multi_trajectory(self):
-        mesh = make_mesh(jax.devices())
-        y, d, _, _, _ = _problem(n_ct=0, n_u=2)
-        n_u = 2
-        n_cpg, n_s = y.shape
-        u0_b, a0_b = self._batch(3, n_cpg, n_u, n_u, n_s, seed=22)
-        want = jax.vmap(lambda u0_, a0_: unsupervised_solve(
-            u0_, a0_, jnp.asarray(y), jnp.asarray(d), n_u,
-            n_iter1=8, n_iter2=5, tol=1e-9))(jnp.asarray(u0_b),
-                                             jnp.asarray(a0_b))
-        y_s, d_s, _ = shard_dataset(mesh, y, d, None)
-        u0_s, a0_s = self._shard_batch(mesh, u0_b, a0_b)
-        got = fused.unsupervised_solve_fused_multi_sharded(
-            u0_s, a0_s, y_s, d_s, n_u, n_iter1=8, n_iter2=5, tol=1e-9)
-        np.testing.assert_allclose(np.asarray(got[0]),
-                                   np.asarray(want[0]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[2]["cost"]),
-                                   np.asarray(want[2]["cost"]),
-                                   rtol=1e-9)
+    @pytest.mark.parametrize("mode", sorted(_MODES))
+    def test_api_restarts_on_sharded_inputs(self, mode):
+        # the public restart API on row-sharded inputs picks a finite
+        # best member and keeps it row-sharded
+        from demethify_tpu.solvers.api import deconvolve
 
-    def test_purity_multi_trajectory(self):
+        cfg = _MODES[mode]
+        n_u = cfg["n_u"]
+        y, d, Rt, _, _ = _problem(n_u=n_u)
         mesh = make_mesh(jax.devices())
-        y, d, Rt, u0, _ = _problem()
-        n_u = u0.shape[1]
-        n_cpg, n_s = y.shape
-        purity = np.full(n_s, 0.35)
-        u0_b, a0_b = self._batch(3, n_cpg, n_u, Rt.shape[1] + n_u, n_s,
-                                 seed=23)
-        want = jax.vmap(lambda u0_, a0_: purity_solve(
-            u0_, a0_, jnp.asarray(y), jnp.asarray(d), jnp.asarray(Rt),
-            jnp.asarray(purity), n_u, n_iter1=6, n_iter2=10,
-            tol=1e-9))(jnp.asarray(u0_b), jnp.asarray(a0_b))
         y_s, d_s, Rt_s = shard_dataset(mesh, y, d, Rt)
-        u0_s, a0_s = self._shard_batch(mesh, u0_b, a0_b)
-        got = fused.purity_solve_fused_multi_sharded(
-            u0_s, a0_s, y_s, d_s, Rt_s, jnp.asarray(purity), n_u,
-            n_iter1=6, n_iter2=10, tol=1e-9)
-        np.testing.assert_allclose(np.asarray(got[0]),
-                                   np.asarray(want[0]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[1]),
-                                   np.asarray(want[1]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[2]["cost"]),
-                                   np.asarray(want[2]["cost"]),
-                                   rtol=1e-9)
-
-    def test_api_sharded_restarts_use_batch_path(self):
-        # the public restart API on sharded inputs must run (and pick a
-        # finite best member) through the sharded multi path
-        from demethify_tpu.solvers.api import partial_reference_deconv
-
-        mesh = make_mesh(jax.devices())
-        y, d, Rt, _, _ = _problem()
-        y_s, d_s, Rt_s = shard_dataset(mesh, y, d, Rt)
-        res = partial_reference_deconv(
-            y_s, d_s, Rt_s, 1, n_restarts=3,
-            n_iter1=6, n_iter2=4, tol=1e-9, seed=2)
+        purity = np.full(y.shape[1], 0.35) if mode == "purity" else None
+        res = deconvolve(y_s, d_s, None if cfg["n_ct"] == 0 else Rt_s,
+                         n_u=n_u, purity=purity, n_restarts=3, n_iter1=6,
+                         n_iter2=cfg["n_iter2"], tol=1e-9, seed=2)
         assert np.isfinite(res.cost)
-        assert res.u.shape == (y.shape[0], 1)
+        assert res.u.shape == (y.shape[0], n_u)
+        assert len(res.u.sharding.device_set) > 1
+        np.testing.assert_allclose(
+            np.asarray(res.proportions).sum(axis=0), 1.0, atol=1e-9)

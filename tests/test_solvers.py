@@ -218,9 +218,8 @@ class TestReviewRegressions:
 
 
 class TestBfloat16Storage:
-    """bfloat16 HBM storage with float32 accumulation: both solver
-    dataflows (XLA gram-form and the fused Pallas path) must stay close
-    to the float32 solve — README's mixed-precision claim."""
+    """bfloat16 storage with float32 accumulation must stay close to the
+    float32 solve — README's mixed-precision claim."""
 
     def _solve_pair(self, small_problem, solver, extra=()):
         p = small_problem
@@ -242,42 +241,3 @@ class TestBfloat16Storage:
         a32, a16 = self._solve_pair(small_problem, partial_ref_solve)
         assert np.abs(a32 - a16).max() < 0.05
         np.testing.assert_allclose(a16.sum(axis=0), 1.0, atol=1e-3)
-
-    def test_fused_path(self, small_problem):
-        from demethify_tpu.solvers.fused import partial_ref_solve_fused
-        a32, a16 = self._solve_pair(small_problem,
-                                    partial_ref_solve_fused)
-        assert np.abs(a32 - a16).max() < 0.05
-        np.testing.assert_allclose(a16.sum(axis=0), 1.0, atol=1e-3)
-
-    def test_fused_bf16_compute(self, small_problem):
-        """bf16_compute (bf16 blocks consumed directly by the dots, f32
-        accumulation): stays close to the f32 solve like plain bf16
-        storage does, and with f32 data the flag is a no-op
-        (bit-identical legacy dataflow)."""
-        import functools
-
-        from demethify_tpu.solvers.fused import partial_ref_solve_fused
-
-        solver = functools.partial(partial_ref_solve_fused,
-                                   bf16_compute=True)
-        a32, a16 = self._solve_pair.__func__(
-            self, small_problem, lambda *a, **k: solver(*a, **k))
-        assert np.abs(a32 - a16).max() < 0.05
-        np.testing.assert_allclose(a16.sum(axis=0), 1.0, atol=1e-3)
-
-        p = small_problem
-        rng = np.random.default_rng(11)
-        u0, a0 = _init(rng, p["y"].shape[0], p["R_trunc"].shape[1]
-                       + p["n_u"], p["n_u"], p["y"].shape[1])
-        args32 = [jnp.asarray(x, jnp.float32) for x in
-                  (u0, a0, p["y"], p["d"], p["R_trunc"])]
-        u_off, a_off, _ = partial_ref_solve_fused(
-            *args32, p["n_u"], n_iter1=20, n_iter2=5, tol=0.0)
-        u_on, a_on, _ = partial_ref_solve_fused(
-            *args32, p["n_u"], n_iter1=20, n_iter2=5, tol=0.0,
-            bf16_compute=True)
-        np.testing.assert_array_equal(np.asarray(a_off),
-                                      np.asarray(a_on))
-        np.testing.assert_array_equal(np.asarray(u_off),
-                                      np.asarray(u_on))

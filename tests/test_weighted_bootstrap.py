@@ -245,142 +245,10 @@ class TestWeightedBootstrapSharded:
                                    np.asarray(local[2]), atol=1e-9)
 
 
-class TestWeightedFusedMulti:
-    """B bootstrap replicates through the multi-member megakernel (one
-    shared Y/D read, per-member multiplicity weights) must reproduce a
-    vmap of the XLA weighted solver per member."""
-
-    def _weights_batch(self, rng, n_b, n):
-        return np.stack([_weights(_resample_idx(rng, n), n)
-                         for _ in range(n_b)])
-
-    def test_partial_ref_weighted_multi(self, small_problem):
-        from demethify_tpu.solvers.fused import partial_ref_solve_fused_multi
-
-        p = small_problem
-        y, d, Rt = (jnp.asarray(p["y"]), jnp.asarray(p["d"]),
-                    jnp.asarray(p["R_trunc"]))
-        n_cpg, n_s = p["y"].shape
-        n_u = p["n_u"]
-        rng = np.random.default_rng(31)
-        n_b = 4
-        w_b = jnp.asarray(self._weights_batch(rng, n_b, n_cpg))
-        u0_b = jnp.asarray(rng.uniform(size=(n_b, n_cpg, n_u)))
-        a0_b = jnp.asarray(np.stack(
-            [rng.dirichlet(np.ones(Rt.shape[1] + n_u), size=n_s).T
-             for _ in range(n_b)]))
-
-        want = jax.vmap(lambda u0, a0, w: partial_ref_solve(
-            u0, a0, y, d, Rt, n_u, n_iter1=12, n_iter2=6, tol=1e-9,
-            record_trace=True, row_weights=w))(u0_b, a0_b, w_b)
-        got = partial_ref_solve_fused_multi(
-            u0_b, a0_b, y, d, Rt, n_u, n_iter1=12, n_iter2=6, tol=1e-9,
-            record_trace=True, row_weights_b=w_b)
-        np.testing.assert_allclose(np.asarray(got[0]),
-                                   np.asarray(want[0]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[1]),
-                                   np.asarray(want[1]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[2]["cost"]),
-                                   np.asarray(want[2]["cost"]),
-                                   rtol=1e-9)
-        np.testing.assert_allclose(np.asarray(got[2]["trace"]),
-                                   np.asarray(want[2]["trace"]),
-                                   rtol=1e-8)
-
-    def test_partial_ref_weighted_multi_termination(self, small_problem):
-        # per-member termination with per-member tolerances intact
-        from demethify_tpu.solvers.fused import partial_ref_solve_fused_multi
-
-        p = small_problem
-        y, d, Rt = (jnp.asarray(p["y"]), jnp.asarray(p["d"]),
-                    jnp.asarray(p["R_trunc"]))
-        n_cpg, n_s = p["y"].shape
-        n_u = p["n_u"]
-        rng = np.random.default_rng(32)
-        n_b = 3
-        w_b = jnp.asarray(self._weights_batch(rng, n_b, n_cpg))
-        u0_b = jnp.asarray(rng.uniform(size=(n_b, n_cpg, n_u)))
-        a0_b = jnp.asarray(np.stack(
-            [rng.dirichlet(np.ones(Rt.shape[1] + n_u), size=n_s).T
-             for _ in range(n_b)]))
-        got = partial_ref_solve_fused_multi(
-            u0_b, a0_b, y, d, Rt, n_u, n_iter1=300, n_iter2=6, tol=5.0,
-            row_weights_b=w_b)
-        for b in range(n_b):
-            single = partial_ref_solve(
-                u0_b[b], a0_b[b], y, d, Rt, n_u, n_iter1=300, n_iter2=6,
-                tol=5.0, row_weights=w_b[b])
-            assert int(single[2]["n_iter"]) == int(got[2]["n_iter"][b])
-            np.testing.assert_allclose(np.asarray(got[1][b]),
-                                       np.asarray(single[1]), atol=1e-8)
-
-    def test_purity_weighted_multi(self, small_problem):
-        from demethify_tpu.solvers.fused import purity_solve_fused_multi
-
-        p = small_problem
-        y, d, Rt = (jnp.asarray(p["y"]), jnp.asarray(p["d"]),
-                    jnp.asarray(p["R_trunc"]))
-        n_cpg, n_s = p["y"].shape
-        n_u = p["n_u"]
-        rng = np.random.default_rng(33)
-        purity = jnp.asarray(rng.uniform(0.3, 0.7, size=n_s))
-        n_b = 3
-        w_b = jnp.asarray(self._weights_batch(rng, n_b, n_cpg))
-        u0_b = jnp.asarray(rng.uniform(size=(n_b, n_cpg, n_u)))
-        a0_b = jnp.asarray(np.stack(
-            [rng.dirichlet(np.ones(Rt.shape[1] + n_u), size=n_s).T
-             for _ in range(n_b)]))
-        want = jax.vmap(lambda u0, a0, w: purity_solve(
-            u0, a0, y, d, Rt, purity, n_u, n_iter1=6, n_iter2=10,
-            tol=1e-9, row_weights=w))(u0_b, a0_b, w_b)
-        got = purity_solve_fused_multi(
-            u0_b, a0_b, y, d, Rt, purity, n_u, n_iter1=6, n_iter2=10,
-            tol=1e-9, row_weights_b=w_b)
-        np.testing.assert_allclose(np.asarray(got[0]),
-                                   np.asarray(want[0]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[1]),
-                                   np.asarray(want[1]), atol=1e-8)
-        np.testing.assert_allclose(np.asarray(got[2]["cost"]),
-                                   np.asarray(want[2]["cost"]),
-                                   rtol=1e-9)
-
-
-def test_bootstrap_fused_multi_route_matches_vmapped(small_problem):
-    # the megakernel route (one shared Y/D read per outer iteration for
-    # the whole replicate chunk) must give the SAME CIs as the vmapped
-    # weighted route — identical key plumbing, same math (interpret mode)
-    p = small_problem
-    y, d, Rt = p["y"], p["d"], p["R_trunc"]
-    n_u = p["n_u"]
-    kw = dict(level=90.0, n_bootstrap=5, n_iter1=8, n_iter2=4,
-              tol=1e-6, key=jax.random.PRNGKey(9), batch_size=5,
-              method="weights")
-    plain = bootstrap_ci(y, d, Rt, n_u, fused_multi=False, **kw)
-    fusedr = bootstrap_ci(y, d, Rt, n_u, fused_multi=True, **kw)
-    for a, b in zip(plain, fusedr):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=1e-9)
-
-
-def test_bootstrap_fused_multi_route_svd_shared_init(small_problem):
-    # SVD shared-init weights mode through the fused-multi route: the
-    # broadcast shared init must give the same CIs as the vmapped route
-    p = small_problem
-    y, d, Rt = p["y"], p["d"], p["R_trunc"]
-    n_u = p["n_u"]
-    kw = dict(level=90.0, n_bootstrap=5, n_iter1=8, n_iter2=4,
-              tol=1e-6, key=jax.random.PRNGKey(12), batch_size=5,
-              method="weights", init_option="SVD")
-    plain = bootstrap_ci(y, d, Rt, n_u, fused_multi=False, **kw)
-    fusedr = bootstrap_ci(y, d, Rt, n_u, fused_multi=True, **kw)
-    for a, b in zip(plain, fusedr):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=1e-9)
-
-
 def test_bootstrap_weights_svd_sharded_matches_local(small_problem):
-    # SVD shared-init weights mode on row-sharded data: the sharded
-    # multi-member megakernel path must reproduce the local CIs
+    # SVD shared-init weights mode on row-sharded data: the vmapped
+    # weighted solve on the row-sharded arrays must reproduce the local
+    # CIs
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from demethify_tpu.parallel.mesh import CPG_AXIS, make_mesh
@@ -390,7 +258,7 @@ def test_bootstrap_weights_svd_sharded_matches_local(small_problem):
     n_u = p["n_u"]
     kw = dict(level=90.0, n_bootstrap=4, n_iter1=6, n_iter2=4,
               tol=1e-6, key=jax.random.PRNGKey(13), batch_size=4,
-              method="weights", init_option="SVD", fused_multi=True)
+              method="weights", init_option="SVD")
     local = bootstrap_ci(y, d, Rt, n_u, **kw)
     mesh = make_mesh(jax.devices()[:4], replicate=1)
     sh = NamedSharding(mesh, P(CPG_AXIS, None))
@@ -401,48 +269,6 @@ def test_bootstrap_weights_svd_sharded_matches_local(small_problem):
     for a, b in zip(local, sharded):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    atol=1e-6)
-
-
-def test_bootstrap_fused_multi_route_purity(small_problem):
-    p = small_problem
-    y, d, Rt = p["y"], p["d"], p["R_trunc"]
-    n_u = p["n_u"]
-    rng = np.random.default_rng(34)
-    purity = rng.uniform(0.3, 0.7, size=y.shape[1])
-    kw = dict(level=90.0, n_bootstrap=4, n_iter1=4, n_iter2=8,
-              tol=1e-6, key=jax.random.PRNGKey(10), batch_size=4,
-              method="weights", purity=jnp.asarray(purity))
-    plain = bootstrap_ci(y, d, Rt, n_u, fused_multi=False, **kw)
-    fusedr = bootstrap_ci(y, d, Rt, n_u, fused_multi=True, **kw)
-    for a, b in zip(plain, fusedr):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=1e-9)
-
-
-def test_bootstrap_fused_multi_sharded_matches_local(small_problem):
-    # row-sharded data + fused multi megakernel route: same CIs as the
-    # local vmapped weighted route (8-device CPU mesh, interpret mode)
-    from demethify_tpu.parallel.mesh import make_mesh, shard_dataset
-
-    p = small_problem
-    y = np.asarray(p["y"])
-    d = np.asarray(p["d"])
-    Rt = np.asarray(p["R_trunc"])
-    n_u = p["n_u"]
-    kw = dict(level=90.0, n_bootstrap=4, n_iter1=6, n_iter2=4,
-              tol=1e-6, key=jax.random.PRNGKey(11), batch_size=4,
-              method="weights")
-    local = bootstrap_ci(jnp.asarray(y), jnp.asarray(d),
-                         jnp.asarray(Rt), n_u, fused_multi=False, **kw)
-    mesh = make_mesh(jax.devices())
-    y_s, d_s, Rt_s = shard_dataset(mesh, y, d, Rt)
-    sharded = bootstrap_ci(y_s, d_s, Rt_s, n_u, n_rows=y.shape[0],
-                           fused_multi=True, **kw)
-    for a, b in zip(local[:2], sharded[:2]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=1e-9)
-    np.testing.assert_allclose(np.asarray(sharded[2])[:y.shape[0]],
-                               np.asarray(local[2]), atol=1e-9)
 
 
 def test_supervised_weights_allows_any_init(small_problem):
